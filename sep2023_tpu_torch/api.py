@@ -1,14 +1,15 @@
 """High-level object API mirroring the reference's facade
 (`Ops/FWI/propagator.py` ElasticPropagator + `Ops/FWI/survey.py` Model):
 construct from physical-grid models and index-based acquisition, call
-`apply_forward`.
+`apply_forward` or `apply_gradient`.
 
-PyTorch counterpart of `sep2023_tpu/api.py`.  `apply_gradient` comes with
-the gradient (ROADMAP M2/M7).
+PyTorch counterpart of `sep2023_tpu/api.py`, on one device (shot sharding
+is ROADMAP M10).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -37,13 +38,14 @@ class Model:
 
 
 class ElasticPropagator:
-    """Forward modeling for one (model, survey) pair on one device.
+    """Forward modeling and adjoint gradients for one (model, survey) pair
+    on one device.
 
     A float32 row survey (one receiver row, contiguous x) runs through
-    `cuda_engine.forward_cuda`: the CUDA kernel on a CUDA device, its plain
-    version on the CPU.  On the CPU any other survey or dtype runs the plain
+    `cuda_engine`: the CUDA kernels on a CUDA device, their plain versions
+    on the CPU.  On the CPU any other survey or dtype runs the plain
     propagator, the counterpart of the JAX package's XLA engine; on any
-    other device it raises, since the kernel cannot take it."""
+    other device it raises, since the kernels cannot take it."""
 
     def __init__(self, model: Model, survey: Survey, f0: float = 10.0, *,
                  device="cuda", dtype=torch.float32):
@@ -77,8 +79,7 @@ class ElasticPropagator:
         self.stf = stf.expand(survey.n_shots, model.nt).contiguous()
 
     def _padded(self, vp, vs, rho):
-        t = lambda a: torch.as_tensor(np.asarray(a), device=self.device
-                                      ).to(self.dtype)
+        t = lambda a: torch.as_tensor(a, device=self.device).to(self.dtype)
         vp, vs, rho = t(vp), t(vs), t(rho)
         lam = (vp ** 2 - 2.0 * vs ** 2) * rho
         mu = vs ** 2 * rho
@@ -100,3 +101,43 @@ class ElasticPropagator:
             data = propagator.propagate_shots(self.cfg, lam, mu, rr,
                                               self.stf, self.geoms)
         return data.cpu().numpy()
+
+    def apply_gradient(self, model_init: Model, obs: np.ndarray,
+                       channels: Sequence[str] = ("ett",),
+                       n_devices: int = 0):
+        """Misfit + gradients w.r.t. (vp, vs, rho) of `model_init` against
+        observed data, plus the per-shot source-wavelet gradient: the
+        outputs of the reference's apply_gradient (`propagator.py:141-218`).
+        One device only: n_devices above 1 raises (ROADMAP M10).
+
+        Returns dict(misfit, grad_vp, grad_vs, grad_rho, grad_stf); gradients
+        are on the PHYSICAL grid (PML collar folded back by the differentiable
+        pad, `propagator.py:198`)."""
+        if n_devices > 1:
+            raise NotImplementedError(
+                "shot sharding over several devices is ROADMAP M10")
+        obs = torch.as_tensor(np.asarray(obs)).to(self.device, self.dtype)
+        w = torch.ones(self.survey.n_shots, device=self.device,
+                       dtype=self.dtype)
+        if self.rs is not None:
+            loss = parallel.make_cuda_misfit(self.cfg, self.survey,
+                                             channels=tuple(channels))
+        else:  # only on the CPU: __init__ raises elsewhere
+            base = parallel.make_local_misfit(self.cfg,
+                                              channels=tuple(channels))
+            loss = lambda l, u, r, s, o, w_: base(l, u, r, s, self.geoms,
+                                                  o, w_)
+        t = lambda a: torch.as_tensor(np.asarray(a), device=self.device
+                                      ).to(self.dtype).requires_grad_()
+        vp, vs, rho = t(model_init.vp), t(model_init.vs), t(model_init.rho)
+        stf = self.stf.clone().requires_grad_()
+        val = loss(*self._padded(vp, vs, rho), stf, obs, w)
+        grads = torch.autograd.grad(val, (vp, vs, rho, stf))
+        out = lambda g: g.detach().cpu().numpy()
+        return {
+            "misfit": float(val.detach()),
+            "grad_vp": out(grads[0]),
+            "grad_vs": out(grads[1]),
+            "grad_rho": out(grads[2]),
+            "grad_stf": out(grads[3]),
+        }

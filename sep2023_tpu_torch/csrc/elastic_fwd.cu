@@ -1,59 +1,60 @@
 // Elastic forward modeling on Hopper: nt-1 leapfrog steps of the O(4)
 // staggered velocity-stress scheme with division-free CPML, an explosive
-// point source and row recording of (pr, vx, vz, ett), for all shots.
+// point source and row recording of (pr, vx, vz, ett), for all shots, and
+// optionally the boundary strips of every step for the gradient.
 //
-// Replaces sep2023_tpu/ops/pallas_engine.py::_run_forward with
-// save_strips=False (the K1 Pallas kernel, pallas_call at line 875, body
-// _fwd_body/_step_values/_record_rows).  It computes what K1 computes; it
-// does not copy K1's TPU layout (no 128-lane padding, no cyclic rolls, no
-// VMEM ring, no DMA chunking).  A stencil neighbour outside the grid reads
-// as 0, the zero-padded edge of ops/fd.py (_padz/_padx); inside the update
-// mask [2, n-3] both edge rules give the same values.
+// Replaces sep2023_tpu/ops/pallas_engine.py::_run_forward (the K1 Pallas
+// kernel, pallas_call at line 875, body _fwd_body/_step_values/_record_rows),
+// with save_strips False (forward modeling) and True (the gradient's
+// forward, _pp_fwd).  It computes what K1 computes; it does not copy K1's
+// TPU layout (no 128-lane padding, no cyclic rolls, no VMEM ring, no DMA
+// chunking, no lr/tb strip staging).  A stencil neighbour outside the grid
+// reads as 0, the zero-padded edge of ops/fd.py; inside the update mask
+// [2, n-3] both edge rules give the same values.
 //
-// What bounds it on this card: each cell-step reads and writes about 36 f32
-// values across the two phases (5 fields, 8 psi, 5 material planes, stencil
-// neighbours mostly from L1/L2), about 144 B.  The kernel is memory bound.
-// At the reference workload (165x265 padded grid, 19 shots) the state of all
-// shots, 13 planes x 165 x 265 x 4 B x 19 = 43 MB, is close to the 50 MB L2,
-// so much of that traffic stays in L2.  This first version is one thread per
-// cell, three launches per step; shared-memory tiles with halos, temporal
-// blocking, a persistent kernel and CUDA graphs are later work.
+// What bounds it on this card: each cell-step does 102 FP32 operations
+// (8 stencils, 8 CPML recursions, the increments; chip_smoke.py counts
+// them) and touches about 36 f32 values across the two phases (5 fields,
+// 8 psi, 5 material planes, stencil neighbours mostly from L1/L2).
+// Counting each input once and each output once (the strips too), the work
+// is operation-bound (1.9 ms of FP32 peak at the reference workload); one
+// thread per cell with all operands from L1/L2 and device memory, as here,
+// is bound by the memory traffic instead.  At the
+// reference workload (165x265 padded grid, 19 shots) the state of all
+// shots, 13 planes x 165 x 265 x 4 B x 19 = 43 MB, is close to the 50 MB L2.
+// This first version is one thread per cell, three launches per step;
+// shared-memory tiles with halos, temporal blocking, a persistent kernel and
+// CUDA graphs are later work.
+//
+// Strips: with a strip buffer, the stress launch of step it writes the
+// pre-update values of the 5 fields at every strip cell (libCUFD.cu:272,
+// propagator._save_bnd): each thread writes its own cell's szz/sxx/sxz
+// before updating them and its vz/vx, which no thread writes in that launch,
+// so there is no race and no extra launch.  The final fields are the first
+// 5 planes of the state buffer, so no copy is made after the loop.
 //
 // Recording is its own launch: the ett sample vx[r,x] - vx[r,x-1] is taken
 // on the post-update field, and a neighbour's new vx is not visible inside
 // the launch that writes it.
 //
-// Rounding: nvcc contracts a*b+c into FMAs by default, so results differ
-// from the XLA/Pallas ones in the last bits (the tests hold 2e-5 per
-// channel, relative to the channel max).  The boundary-saving gradient needs
-// the forward and the time-reversed interior updates of this engine to match
-// bitwise; whether that needs --fmad=false is decided with that kernel.
+// Rounding: the stencils, the interior increments and the source use the
+// shared code of elastic_common.cuh, with explicit rounding, so that the
+// backward kernel's reconstruction subtracts exactly what this kernel adds.
 
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "elastic_common.cuh"
 
 namespace {
 
-constexpr float kC1 = static_cast<float>(9.0 / 8.0);
-constexpr float kC2 = static_cast<float>(1.0 / 24.0);
+using namespace elastic;
 
-constexpr int kBlockX = 32;
-constexpr int kBlockZ = 8;
 constexpr int kRecThreads = 128;
 
-// Plane order of the state buffer (13, S, nz, nx).
-enum Plane {
-  VZ = 0, VX, SZZ, SXX, SXZ,
-  P_VZ_DZ, P_VX_DX, P_VX_DZ, P_VZ_DX,
+// Plane order of the state buffer (13, S, nz, nx): the 5 fields (Field
+// order), then the 8 CPML psi.
+enum Psi {
+  P_VZ_DZ = 5, P_VX_DX, P_VX_DZ, P_VZ_DX,
   P_SZZ_DZ, P_SXZ_DX, P_SXZ_DZ, P_SXX_DX,
 };
-
-// Material planes (5, nz, nx): lam, lam + 2 mu, harmonic mu, two buoyancies.
-enum Mat { LAM = 0, LP2M, AVE_MU, BYC_A, BYC_B };
-
-// Profile rows: prof_z (6, nz) and prof_x (6, nx), as cpml.CpmlScaled.
-enum Prof { IK = 0, A, B, IK_H, A_H, B_H };
 
 struct Params {
   const float* mats;    // (5, nz, nx)
@@ -65,46 +66,15 @@ struct Params {
   const float* rxz;     // (S,)
   float* state;         // (13, S, nz, nx)
   float* data;          // (S, 4, R, nt)
+  float* strips;        // (S, nt-1, 5, strip n), or null
   int S, nz, nx, nt;
   int rec_row, rec_x0, n_rec, ett_ezz;
   float dt, src_amp;    // src_amp = src_scale * dt
+  StripGeom sg;
 };
 
 __device__ __forceinline__ float* plane(const Params& p, int k, int s) {
-  return p.state + (static_cast<size_t>(k) * p.S + s) *
-                       static_cast<size_t>(p.nz) * p.nx;
-}
-
-// Zero outside the grid: the zero-padded edge of ops/fd.py.
-__device__ __forceinline__ float at(const float* f, int z, int x, int nz,
-                                    int nx) {
-  return (z >= 0 && z < nz && x >= 0 && x < nx)
-             ? f[static_cast<size_t>(z) * nx + x] : 0.0f;
-}
-
-// dminus[i] = C1 (f[i] - f[i-1]) - C2 (f[i+1] - f[i-2]), along z or x.
-__device__ __forceinline__ float dz_minus(const float* f, int z, int x,
-                                          int nz, int nx) {
-  return kC1 * (at(f, z, x, nz, nx) - at(f, z - 1, x, nz, nx)) -
-         kC2 * (at(f, z + 1, x, nz, nx) - at(f, z - 2, x, nz, nx));
-}
-
-__device__ __forceinline__ float dz_plus(const float* f, int z, int x,
-                                         int nz, int nx) {
-  return kC1 * (at(f, z + 1, x, nz, nx) - at(f, z, x, nz, nx)) -
-         kC2 * (at(f, z + 2, x, nz, nx) - at(f, z - 1, x, nz, nx));
-}
-
-__device__ __forceinline__ float dx_minus(const float* f, int z, int x,
-                                          int nz, int nx) {
-  return kC1 * (at(f, z, x, nz, nx) - at(f, z, x - 1, nz, nx)) -
-         kC2 * (at(f, z, x + 1, nz, nx) - at(f, z, x - 2, nz, nx));
-}
-
-__device__ __forceinline__ float dx_plus(const float* f, int z, int x,
-                                         int nz, int nx) {
-  return kC1 * (at(f, z, x + 1, nz, nx) - at(f, z, x, nz, nx)) -
-         kC2 * (at(f, z, x + 2, nz, nx) - at(f, z, x - 1, nz, nx));
+  return p.state + plane_offset(k, s, p.S, p.nz, p.nx);
 }
 
 // Stress half-step (propagator._stress_update + _add_source): 4 velocity-
@@ -117,49 +87,52 @@ __global__ void stress_kernel(Params p, int it) {
   const int nz = p.nz, nx = p.nx;
   const size_t c = static_cast<size_t>(z) * nx + x;
   const size_t plane_n = static_cast<size_t>(nz) * nx;
-  const float* vz = plane(p, VZ, s);
-  const float* vx = plane(p, VX, s);
+  const float* vz = plane(p, F_VZ, s);
+  const float* vx = plane(p, F_VX, s);
   const float* pz = p.prof_z;
   const float* px = p.prof_x;
+  float* szz = plane(p, F_SZZ, s) + c;
+  float* sxx = plane(p, F_SXX, s) + c;
+  float* sxz = plane(p, F_SXZ, s) + c;
 
-  const float d_vz = dz_minus(vz, z, x, nz, nx);
-  float* psi = plane(p, P_VZ_DZ, s) + c;
-  const float p_vz_dz = pz[B * nz + z] * *psi + pz[A * nz + z] * d_vz;
-  *psi = p_vz_dz;
-  const float dvz = d_vz * pz[IK * nz + z] + p_vz_dz;
+  if (p.strips != nullptr) {
+    int slot[2];
+    const int n_slots = strip_slots(p.sg, z, x, nz, nx, slot);
+    if (n_slots > 0) {
+      const float vals[kNumFields] = {vz[c], vx[c], *szz, *sxx, *sxz};
+      float* out = p.strips + strip_offset(p.sg, s, it, p.nt);
+      for (int k = 0; k < n_slots; ++k) {
+        for (int f = 0; f < kNumFields; ++f) {
+          out[static_cast<size_t>(f) * p.sg.n + slot[k]] = vals[f];
+        }
+      }
+    }
+  }
 
-  const float d_vx = dx_minus(vx, z, x, nz, nx);
-  psi = plane(p, P_VX_DX, s) + c;
-  const float p_vx_dx = px[B * nx + x] * *psi + px[A * nx + x] * d_vx;
-  *psi = p_vx_dx;
-  const float dvx = d_vx * px[IK * nx + x] + p_vx_dx;
+  const float e_vz_dz = cpml_deriv(
+      dz_minus(vz, z, x, nz, nx), pz[IK * nz + z], pz[A * nz + z],
+      pz[B * nz + z], plane(p, P_VZ_DZ, s) + c);
+  const float e_vx_dx = cpml_deriv(
+      dx_minus(vx, z, x, nz, nx), px[IK * nx + x], px[A * nx + x],
+      px[B * nx + x], plane(p, P_VX_DX, s) + c);
+  const float e_vx_dz = cpml_deriv(
+      dz_plus(vx, z, x, nz, nx), pz[IK_H * nz + z], pz[A_H * nz + z],
+      pz[B_H * nz + z], plane(p, P_VX_DZ, s) + c);
+  const float e_vz_dx = cpml_deriv(
+      dx_plus(vz, z, x, nz, nx), px[IK_H * nx + x], px[A_H * nx + x],
+      px[B_H * nx + x], plane(p, P_VZ_DX, s) + c);
 
-  const float d_vxz = dz_plus(vx, z, x, nz, nx);
-  psi = plane(p, P_VX_DZ, s) + c;
-  const float p_vx_dz = pz[B_H * nz + z] * *psi + pz[A_H * nz + z] * d_vxz;
-  *psi = p_vx_dz;
-  const float dvxz = d_vxz * pz[IK_H * nz + z] + p_vx_dz;
-
-  const float d_vzx = dx_plus(vz, z, x, nz, nx);
-  psi = plane(p, P_VZ_DX, s) + c;
-  const float p_vz_dx = px[B_H * nx + x] * *psi + px[A_H * nx + x] * d_vzx;
-  *psi = p_vz_dx;
-  const float dvzx = d_vzx * px[IK_H * nx + x] + p_vz_dx;
-
-  float* szz = plane(p, SZZ, s) + c;
-  float* sxx = plane(p, SXX, s) + c;
-  float* sxz = plane(p, SXZ, s) + c;
   if (z >= 2 && z <= nz - 3 && x >= 2 && x <= nx - 3) {
-    const float lam = p.mats[LAM * plane_n + c];
-    const float lp2m = p.mats[LP2M * plane_n + c];
-    *szz += (lp2m * dvz + lam * dvx) * p.dt;
-    *sxx += (lam * dvz + lp2m * dvx) * p.dt;
-    *sxz += p.mats[AVE_MU * plane_n + c] * (dvxz + dvzx) * p.dt;
+    const StressInc inc = stress_increment(e_vz_dz, e_vx_dx, e_vx_dz,
+                                           e_vz_dx, p.mats, plane_n, c, p.dt);
+    *szz = __fadd_rn(*szz, inc.zz);
+    *sxx = __fadd_rn(*sxx, inc.xx);
+    *sxz = __fadd_rn(*sxz, inc.xz);
   }
   if (z == p.src_z[s] && x == p.src_x[s]) {
-    const float amp = p.src_amp * p.stf[static_cast<size_t>(s) * p.nt + it];
-    *szz += amp;
-    *sxx += p.rxz[s] * amp;
+    const float amp = source_amp(p.stf, s, it, p.nt, p.src_amp);
+    *szz = __fadd_rn(*szz, amp);
+    *sxx = __fadd_rn(*sxx, __fmul_rn(p.rxz[s], amp));
   }
 }
 
@@ -172,41 +145,34 @@ __global__ void velocity_kernel(Params p) {
   const int nz = p.nz, nx = p.nx;
   const size_t c = static_cast<size_t>(z) * nx + x;
   const size_t plane_n = static_cast<size_t>(nz) * nx;
-  const float* szz = plane(p, SZZ, s);
-  const float* sxx = plane(p, SXX, s);
-  const float* sxz = plane(p, SXZ, s);
+  const float* szz = plane(p, F_SZZ, s);
+  const float* sxx = plane(p, F_SXX, s);
+  const float* sxz = plane(p, F_SXZ, s);
   const float* pz = p.prof_z;
   const float* px = p.prof_x;
 
-  const float d_szz = dz_plus(szz, z, x, nz, nx);
-  float* psi = plane(p, P_SZZ_DZ, s) + c;
-  const float p_szz_dz = pz[B_H * nz + z] * *psi + pz[A_H * nz + z] * d_szz;
-  *psi = p_szz_dz;
-  const float dszz = d_szz * pz[IK_H * nz + z] + p_szz_dz;
-
-  const float d_sxzx = dx_minus(sxz, z, x, nz, nx);
-  psi = plane(p, P_SXZ_DX, s) + c;
-  const float p_sxz_dx = px[B * nx + x] * *psi + px[A * nx + x] * d_sxzx;
-  *psi = p_sxz_dx;
-  const float dsxzx = d_sxzx * px[IK * nx + x] + p_sxz_dx;
-
-  const float d_sxzz = dz_minus(sxz, z, x, nz, nx);
-  psi = plane(p, P_SXZ_DZ, s) + c;
-  const float p_sxz_dz = pz[B * nz + z] * *psi + pz[A * nz + z] * d_sxzz;
-  *psi = p_sxz_dz;
-  const float dsxzz = d_sxzz * pz[IK * nz + z] + p_sxz_dz;
-
-  const float d_sxx = dx_plus(sxx, z, x, nz, nx);
-  psi = plane(p, P_SXX_DX, s) + c;
-  const float p_sxx_dx = px[B_H * nx + x] * *psi + px[A_H * nx + x] * d_sxx;
-  *psi = p_sxx_dx;
-  const float dsxx = d_sxx * px[IK_H * nx + x] + p_sxx_dx;
+  const float e_szz_dz = cpml_deriv(
+      dz_plus(szz, z, x, nz, nx), pz[IK_H * nz + z], pz[A_H * nz + z],
+      pz[B_H * nz + z], plane(p, P_SZZ_DZ, s) + c);
+  const float e_sxz_dx = cpml_deriv(
+      dx_minus(sxz, z, x, nz, nx), px[IK * nx + x], px[A * nx + x],
+      px[B * nx + x], plane(p, P_SXZ_DX, s) + c);
+  const float e_sxz_dz = cpml_deriv(
+      dz_minus(sxz, z, x, nz, nx), pz[IK * nz + z], pz[A * nz + z],
+      pz[B * nz + z], plane(p, P_SXZ_DZ, s) + c);
+  const float e_sxx_dx = cpml_deriv(
+      dx_plus(sxx, z, x, nz, nx), px[IK_H * nx + x], px[A_H * nx + x],
+      px[B_H * nx + x], plane(p, P_SXX_DX, s) + c);
 
   if (z >= 2 && z <= nz - 3 && x >= 2 && x <= nx - 3) {
-    plane(p, VZ, s)[c] +=
-        (dszz + dsxzx) * p.mats[BYC_A * plane_n + c] * p.dt;
-    plane(p, VX, s)[c] +=
-        (dsxzz + dsxx) * p.mats[BYC_B * plane_n + c] * p.dt;
+    float* vz = plane(p, F_VZ, s) + c;
+    float* vx = plane(p, F_VX, s) + c;
+    *vz = __fadd_rn(*vz, velocity_increment(e_szz_dz, e_sxz_dx,
+                                            p.mats[BYC_A * plane_n + c],
+                                            p.dt));
+    *vx = __fadd_rn(*vx, velocity_increment(e_sxz_dz, e_sxx_dx,
+                                            p.mats[BYC_B * plane_n + c],
+                                            p.dt));
   }
 }
 
@@ -218,9 +184,9 @@ __global__ void record_kernel(Params p, int it) {
   const int r = idx % p.n_rec;
   const int nx = p.nx;
   const size_t c = static_cast<size_t>(p.rec_row) * nx + p.rec_x0 + r;
-  const float* vz = plane(p, VZ, s);
-  const float* vx = plane(p, VX, s);
-  const float pr = plane(p, SZZ, s)[c] + plane(p, SXX, s)[c];
+  const float* vz = plane(p, F_VZ, s);
+  const float* vx = plane(p, F_VX, s);
+  const float pr = plane(p, F_SZZ, s)[c] + plane(p, F_SXX, s)[c];
   // ett is not divided by the spacing (recording_exx / recording_ezz)
   const float ett = p.ett_ezz ? vz[c] - vz[c - nx] : vx[c] - vx[c - 1];
   const size_t ch = static_cast<size_t>(p.n_rec) * p.nt;
@@ -236,16 +202,20 @@ __global__ void record_kernel(Params p, int it) {
 
 // Runs all nt-1 steps for all shots on `stream`; returns the first CUDA
 // error (0 on success).  Does not synchronise and allocates nothing: the
-// caller passes a zeroed state and a zeroed data buffer.
+// caller passes a zeroed state and a zeroed data buffer, and either a strip
+// buffer of (S, nt-1, 5, 2 n_bnd (nz + nx)) floats, which every step fills,
+// or null.
 extern "C" int elastic_forward(const float* mats, const float* prof_z,
                                const float* prof_x, const float* stf,
                                const int* src_z, const int* src_x,
                                const float* rxz, float* state, float* data,
-                               int S, int nz, int nx, int nt, int rec_row,
-                               int rec_x0, int n_rec, int ett_ezz, float dt,
+                               float* strips, int S, int nz, int nx, int nt,
+                               int rec_row, int rec_x0, int n_rec,
+                               int ett_ezz, int npml, int n_bnd, float dt,
                                float src_amp, void* stream) {
   Params p{mats, prof_z, prof_x, stf, src_z, src_x, rxz, state, data,
-           S, nz, nx, nt, rec_row, rec_x0, n_rec, ett_ezz, dt, src_amp};
+           strips, S, nz, nx, nt, rec_row, rec_x0, n_rec, ett_ezz, dt,
+           src_amp, strip_geom(nz, nx, npml, n_bnd)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 block(kBlockX, kBlockZ, 1);
   const dim3 grid((nx + kBlockX - 1) / kBlockX, (nz + kBlockZ - 1) / kBlockZ,
@@ -265,7 +235,8 @@ extern "C" int elastic_forward(const float* mats, const float* prof_z,
   return 0;
 }
 
-// Message for an error code returned by elastic_forward.
+// Message for an error code returned by elastic_forward or
+// elastic_backward.
 extern "C" const char* elastic_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -11,6 +11,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 class MatFields(NamedTuple):
@@ -105,6 +106,17 @@ def pad_model(arr, npml: int):
     iz = torch.arange(-npml, nz + npml, device=arr.device).clamp(0, nz - 1)
     ix = torch.arange(-npml, nx + npml, device=arr.device).clamp(0, nx - 1)
     return arr[..., iz, :][..., ix]
+
+
+def resize_and_pad(arr, nz_phys: int, nx_phys: int, npml: int):
+    """Bilinear-resize a coarse (nz, nx) model to the physical grid, then
+    replicate-pad (the differentiable path of `fwi_utils.py:31-44`).
+    align_corners=False is the half-pixel rule of the JAX package's
+    jax.image.resize 'linear' (PARITY.md:26); an unchanged size is the
+    identity."""
+    r = F.interpolate(arr[None, None], size=(nz_phys, nx_phys),
+                      mode="bilinear", align_corners=False)[0, 0]
+    return pad_model(r, npml)
 
 
 def pad_model_np(arr: np.ndarray, npml: int) -> np.ndarray:

@@ -1,5 +1,5 @@
-"""2-D elastic velocity-stress propagator with CPML: the plain PyTorch
-version (forward half).
+"""2-D elastic velocity-stress propagator with CPML and a boundary-saving
+adjoint: the plain PyTorch version.
 
 PyTorch counterpart of `sep2023_tpu/propagator.py` (the XLA engine).  The
 same update order as the reference CUDA engine (`libCUFD.cu:281-330`):
@@ -8,8 +8,15 @@ stress -> source -> velocity -> record, with the division-free CPML form
 (S, nz, nx), and the material planes and profiles broadcast against it.
 
 This is the port's reference: the CPU tests hold it equal to the JAX
-engine, and the CUDA kernel (ops/cuda_engine.py) is held equal to it.  The
-boundary-saving adjoint comes with the gradient (ROADMAP M2).
+engine, and the CUDA kernels (ops/cuda_engine.py) are held equal to it.
+
+The gradient is the JAX engine's boundary-saving adjoint
+(`sep2023_tpu/propagator.py:335-436`): the forward saves the 5-deep boundary
+strips of the 5 fields before every step; the backward reconstructs the
+state one step back by time-reversed interior updates plus the saved strips,
+and takes autograd of `elastic_step` at the reconstructed state with zero
+CPML memory.  Strips are stored flat, per shot and step, in the layout the
+CUDA kernels share (`strip_len`, `_extract_strips`).
 """
 from __future__ import annotations
 
@@ -86,6 +93,14 @@ def _consts(cfg: SimConfig, *, device, dtype):
     mask_f = fd.update_mask(cfg.nz, cfg.nx, 2, cfg.nz - 3, 2, cfg.nx - 3,
                             device=device, dtype=dtype)
     return cp, mask_f
+
+
+def _interior_mask(cfg: SimConfig, *, device, dtype):
+    """The interior [npml, n-1-npml] (the reverse branch, el_stress.cu:92):
+    where the reconstruction updates and where gradients are kept."""
+    return fd.update_mask(cfg.nz, cfg.nx, cfg.npml, cfg.nz - 1 - cfg.npml,
+                          cfg.npml, cfg.nx - 1 - cfg.npml, device=device,
+                          dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -203,12 +218,124 @@ def elastic_step(state: State, mat: MatFields, amp, geom: ShotGeom,
 
 
 # ---------------------------------------------------------------------------
+# Time-reversed reconstruction (interior only, no CPML; el_stress.cu:89-104,
+# el_velocity.cu:84-98)
+# ---------------------------------------------------------------------------
+
+def _velocity_reverse(f: Fields, mat: MatFields, mask_i, cfg: SimConfig):
+    # multiply by the reciprocal spacing (not divide): it matches the
+    # forward's interior d_eff = D * ik, ik = dtype(1/dh) (cpml.CpmlScaled),
+    # so forward and reverse compute the same interior increment
+    mz, mx = mask_i
+    dt = cfg.dt
+    idz, idx = 1.0 / cfg.dz, 1.0 / cfg.dx
+    dvz = fd.dz_plus(f.szz) * idz + fd.dx_minus(f.sxz) * idx
+    dvx = fd.dz_minus(f.sxz) * idz + fd.dx_plus(f.sxx) * idx
+    vz = f.vz - (mz * mx) * (dvz * mat.byc_a * dt)
+    vx = f.vx - (mz * mx) * (dvx * mat.byc_b * dt)
+    return Fields(vz, vx, f.szz, f.sxx, f.sxz)
+
+
+def _stress_reverse(f: Fields, mat: MatFields, mask_i, cfg: SimConfig):
+    mz, mx = mask_i
+    dt = cfg.dt
+    idz, idx = 1.0 / cfg.dz, 1.0 / cfg.dx
+    dvz_dz = fd.dz_minus(f.vz) * idz
+    dvx_dx = fd.dx_minus(f.vx) * idx
+    szz = f.szz - (mz * mx) * ((mat.lp2m * dvz_dz + mat.lam * dvx_dx) * dt)
+    sxx = f.sxx - (mz * mx) * ((mat.lam * dvz_dz + mat.lp2m * dvx_dx) * dt)
+    dvx_dz = fd.dz_plus(f.vx) * idz
+    dvz_dx = fd.dx_plus(f.vz) * idx
+    sxz = f.sxz - (mz * mx) * (mat.ave_mu * (dvx_dz + dvz_dx) * dt)
+    return Fields(f.vz, f.vx, szz, sxx, sxz)
+
+
+# ---------------------------------------------------------------------------
+# Boundary strips: one flat vector per field, shot and step
+# ---------------------------------------------------------------------------
+
+N_FIELDS = 5
+
+
+def _strip_bounds(cfg: SimConfig):
+    L = cfg.n_bnd_layers
+    z0 = cfg.npml - 2                 # top strip start (utilities.cu:371)
+    z1 = cfg.nz - cfg.npml - 3        # bottom strip start (utilities.cu:388)
+    x0 = cfg.npml - 2
+    x1 = cfg.nx - cfg.npml - 3
+    return L, z0, z1, x0, x1
+
+
+def strip_len(cfg: SimConfig) -> int:
+    """Length of one field's strips: top (L, nx), bottom (L, nx), left
+    (nz, L) and right (nz, L), each row-major, in that order."""
+    return 2 * cfg.n_bnd_layers * (cfg.nz + cfg.nx)
+
+
+def check_strip_grid(cfg: SimConfig) -> None:
+    """The strips must lie inside the grid and not overlap each other."""
+    L = cfg.n_bnd_layers
+    if cfg.npml < 2 or min(cfg.nz, cfg.nx) - 2 * cfg.npml < L + 1:
+        raise ValueError(
+            f"boundary strips of depth {L} need npml >= 2 and a physical "
+            f"grid of at least {L + 1} cells a side; got {cfg.nz}x{cfg.nx} "
+            f"with npml {cfg.npml}")
+
+
+def _extract_strips(a, cfg: SimConfig):
+    """(S, nz, nx) field -> (S, strip_len) strips."""
+    L, z0, z1, x0, x1 = _strip_bounds(cfg)
+    S = a.shape[0]
+    return torch.cat([a[:, z0:z0 + L, :].reshape(S, -1),
+                      a[:, z1:z1 + L, :].reshape(S, -1),
+                      a[:, :, x0:x0 + L].reshape(S, -1),
+                      a[:, :, x1:x1 + L].reshape(S, -1)], dim=1)
+
+
+def _inject_strips(a, s, cfg: SimConfig):
+    """Overwrite the strips of a (S, nz, nx) field with s (S, strip_len)."""
+    L, z0, z1, x0, x1 = _strip_bounds(cfg)
+    S, nz, nx = a.shape
+    top, bot, left, right = torch.split(s, [L * nx, L * nx, nz * L, nz * L],
+                                        dim=1)
+    a = a.clone()
+    a[:, z0:z0 + L, :] = top.reshape(S, L, nx)
+    a[:, z1:z1 + L, :] = bot.reshape(S, L, nx)
+    a[:, :, x0:x0 + L] = left.reshape(S, nz, L)
+    a[:, :, x1:x1 + L] = right.reshape(S, nz, L)
+    return a
+
+
+def _save_bnd(f: Fields, cfg: SimConfig):
+    """(S, 5, strip_len): the strips of the 5 fields, in Fields order."""
+    return torch.stack([_extract_strips(a, cfg) for a in f], dim=1)
+
+
+def _reverse_step(f: Fields, mat: MatFields, mask_i, bnd, amp,
+                  geom: ShotGeom, cfg: SimConfig) -> Fields:
+    """The fields one step back, from those after the step, the strips
+    `bnd` (S, 5, strip_len) saved before it and its source sample amp (S,)
+    (libCUFD.cu:553-582 ordering)."""
+    f = _velocity_reverse(f, mat, mask_i, cfg)
+    f = f._replace(vz=_inject_strips(f.vz, bnd[:, 0], cfg),
+                   vx=_inject_strips(f.vx, bnd[:, 1], cfg))
+    szz, sxx = _add_source(f.szz, f.sxx, amp, geom, cfg, sign=-1.0)
+    f = _stress_reverse(f._replace(szz=szz, sxx=sxx), mat, mask_i, cfg)
+    return f._replace(szz=_inject_strips(f.szz, bnd[:, 2], cfg),
+                      sxx=_inject_strips(f.sxx, bnd[:, 3], cfg),
+                      sxz=_inject_strips(f.sxz, bnd[:, 4], cfg))
+
+
+# ---------------------------------------------------------------------------
 # Forward scan
 # ---------------------------------------------------------------------------
 
-def _forward(cfg: SimConfig, lam, mu, rho, stf, geom: ShotGeom):
+def _forward(cfg: SimConfig, lam, mu, rho, stf, geom: ShotGeom,
+             save_bnd: bool = False):
     """All shots of `geom` over nt-1 steps: data (S, 4, R, nt), sample 0
-    zero (recording index it+1, libCUFD.cu:310)."""
+    zero (recording index it+1, libCUFD.cu:310).  With save_bnd, returns
+    (data, final Fields, strips (S, nt-1, 5, strip_len)), the strips of
+    step it taken before that step (libCUFD.cu:272)."""
     dtype, device = lam.dtype, lam.device
     S, R = geom.rec_z.shape
     mat = material_fields(lam, mu, rho)
@@ -216,21 +343,123 @@ def _forward(cfg: SimConfig, lam, mu, rho, stf, geom: ShotGeom):
     state = zero_state((S, cfg.nz, cfg.nx), device=device, dtype=dtype)
     data = torch.zeros((S, N_CHANNELS, R, cfg.nt), device=device,
                        dtype=dtype)
+    if save_bnd:
+        check_strip_grid(cfg)
+        strips = torch.empty((S, cfg.nt - 1, N_FIELDS, strip_len(cfg)),
+                             device=device, dtype=dtype)
     for it in range(cfg.nt - 1):
+        if save_bnd:
+            strips[:, it] = _save_bnd(state.f, cfg)
         state, rec = elastic_step(state, mat, stf[:, it], geom, cp, mask_f,
                                   cfg)
         data[..., it + 1] = rec
+    if save_bnd:
+        return data, state.f, strips
     return data
+
+
+def reconstruct(cfg: SimConfig, lam, mu, rho, stf, geom: ShotGeom,
+                final: Fields, strips) -> Fields:
+    """The reconstruction alone: the fields rebuilt back to t=0 from the
+    final fields and the strips (the primal half of `adjoint`)."""
+    mat = material_fields(lam, mu, rho)
+    mask_i = _interior_mask(cfg, device=lam.device, dtype=lam.dtype)
+    f = final
+    for it in reversed(range(cfg.nt - 1)):
+        f = _reverse_step(f, mat, mask_i, strips[:, it], stf[:, it], geom,
+                          cfg)
+    return f
+
+
+def material_grads(cfg: SimConfig, lam, mu, rho, gmat: MatFields):
+    """Gradients of (lam, mu, rho) from those of the material fields,
+    kept inside the interior only, where the reconstruction is exact
+    (as the reference's imaging conditions, el_stress.cu:92)."""
+    mz, mx = _interior_mask(cfg, device=lam.device, dtype=lam.dtype)
+    with torch.enable_grad():
+        prims = tuple(a.detach().requires_grad_() for a in (lam, mu, rho))
+        mat = material_fields(*prims)
+        return torch.autograd.grad(tuple(mat), prims,
+                                   tuple(g * (mz * mx) for g in gmat))
+
+
+def adjoint(cfg: SimConfig, lam, mu, rho, stf, geom: ShotGeom, final: Fields,
+            strips, d_data):
+    """The boundary-saving adjoint over all shots: from the final fields,
+    the strips and the data cotangent d_data (S, 4, R, nt), returns
+    (gmat, d_stf, f0): the gradients of the material fields summed over
+    shots and over the whole grid (not yet masked), d_stf (S, nt) and the
+    fields reconstructed back to t=0.  Each step reconstructs state_t and
+    takes autograd of elastic_step there with zero CPML memory."""
+    dtype, device = lam.dtype, lam.device
+    shape = (stf.shape[0], cfg.nz, cfg.nx)
+    mat = MatFields(*(m.detach() for m in material_fields(lam, mu, rho)))
+    cp, mask_f = _consts(cfg, device=device, dtype=dtype)
+    mask_i = _interior_mask(cfg, device=device, dtype=dtype)
+    zero_psi = zero_state(shape, device=device, dtype=dtype).psi
+    adj = zero_state(shape, device=device, dtype=dtype)
+    gmat = [torch.zeros_like(m) for m in mat]
+    d_stf = torch.zeros_like(stf)
+    f = Fields(*(a.detach() for a in final))
+    for it in reversed(range(cfg.nt - 1)):
+        amp = stf[:, it].detach()
+        f = _reverse_step(f, mat, mask_i, strips[:, it], amp, geom, cfg)
+        with torch.enable_grad():
+            ins = tuple(a.clone().requires_grad_()
+                        for a in (*f, *zero_psi, *mat, amp))
+            state_t = State(Fields(*ins[:5]), Psi(*ins[5:13]))
+            out, rec = elastic_step(state_t, MatFields(*ins[13:18]), ins[18],
+                                    geom, cp, mask_f, cfg)
+            grads = torch.autograd.grad(
+                (*out.f, *out.psi, rec), ins,
+                (*adj.f, *adj.psi, d_data[..., it + 1]))
+        adj = State(Fields(*grads[:5]), Psi(*grads[5:13]))
+        for g, d in zip(gmat, grads[13:18]):
+            g += d
+        d_stf[:, it] = grads[18]
+    return MatFields(*gmat), d_stf, f
+
+
+class _Propagate(torch.autograd.Function):
+    """The forward with strip saving, and the boundary-saving adjoint as
+    its backward: the counterpart of the JAX engine's custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, cfg, geom, lam, mu, rho, stf):
+        if not any(ctx.needs_input_grad[2:]):
+            return _forward(cfg, lam, mu, rho, stf, geom)
+        data, final, strips = _forward(cfg, lam, mu, rho, stf, geom,
+                                       save_bnd=True)
+        ctx.cfg, ctx.geom = cfg, geom
+        ctx.save_for_backward(lam, mu, rho, stf, strips, *final)
+        return data
+
+    @staticmethod
+    def backward(ctx, d_data):
+        lam, mu, rho, stf, strips, *final = ctx.saved_tensors
+        gmat, d_stf, _ = adjoint(ctx.cfg, lam, mu, rho, stf, ctx.geom,
+                                 Fields(*final), strips, d_data)
+        d_lam, d_mu, d_rho = material_grads(ctx.cfg, lam, mu, rho, gmat)
+        return None, None, d_lam, d_mu, d_rho, d_stf
 
 
 def propagate(cfg: SimConfig, lam, mu, rho, stf, geom: ShotGeom):
     """Simulate one shot (stf (nt,), geom fields without the shot axis);
-    returns seismograms shaped (4, n_rec, nt), channels (pr, vx, vz, ett)."""
+    returns seismograms shaped (4, n_rec, nt), channels (pr, vx, vz, ett).
+    Differentiable in lam, mu, rho, stf by the boundary-saving adjoint."""
     one = ShotGeom(*(None if g is None else g[None] for g in geom))
-    return _forward(cfg, lam, mu, rho, stf[None], one)[0]
+    return propagate_shots(cfg, lam, mu, rho, stf[None], one)[0]
 
 
 def propagate_shots(cfg: SimConfig, lam, mu, rho, stf, geoms: ShotGeom):
     """All shots at once: stf (S, nt), geoms fields lead with S; returns
-    (S, 4, n_rec, nt).  Replaces the shot loop of `Torch_Fwi.cpp:71-95`."""
+    (S, 4, n_rec, nt).  Replaces the shot loop of `Torch_Fwi.cpp:71-95`.
+    Differentiable by the boundary-saving adjoint."""
+    return _Propagate.apply(cfg, geoms, lam, mu, rho, stf)
+
+
+def propagate_ad(cfg: SimConfig, lam, mu, rho, stf, geoms: ShotGeom):
+    """The same forward differentiated by plain autograd through every step
+    (keeps the whole history): the oracle of the boundary-saving adjoint.
+    stf (S, nt), geoms fields lead with S."""
     return _forward(cfg, lam, mu, rho, stf, geoms)

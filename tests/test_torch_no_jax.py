@@ -1,12 +1,17 @@
 """The port stands alone and never falls back.
 
-* Importing sep2023_tpu_torch (cli, api, the CUDA engine) loads neither jax
-  nor sep2023_tpu: the machine with the card has no JAX.
-* forward_cuda on tensors that are not on the CPU builds and launches the
-  kernel or raises; it never runs the plain version instead.
-* The wrapper rejects what the kernel does not take before any pointer is
-  passed.
+* Importing sep2023_tpu_torch (cli, api, the CUDA engine, the invert path's
+  modules) loads neither jax nor sep2023_tpu: the machine with the card has
+  no JAX.
+* forward_cuda, backward_cuda, reconstruct_cuda, propagate_cuda,
+  make_cuda_misfit, ElasticPropagator.apply_gradient and `cli invert` on a
+  device that is not the CPU build and launch the kernels or raise; they
+  never run the plain versions instead.
+* The wrappers reject what the kernels do not take before any pointer is
+  passed, and the backward kernel has no atomics (its gradient is the same
+  from run to run).
 """
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -15,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from sep2023_tpu_torch.config import SimConfig
+from sep2023_tpu_torch import api, cli, parallel
+from sep2023_tpu_torch.config import SimConfig, Survey
 from sep2023_tpu_torch.ops import _build, cuda_engine
 
 REPO = Path(__file__).resolve().parents[1]
@@ -38,7 +44,10 @@ def test_import_loads_no_jax():
         "import sys\n"
         "import sep2023_tpu_torch, sep2023_tpu_torch.cli, "
         "sep2023_tpu_torch.api, sep2023_tpu_torch.ops.cuda_engine, "
-        "sep2023_tpu_torch.convert, sep2023_tpu_torch.io\n"
+        "sep2023_tpu_torch.convert, sep2023_tpu_torch.io, "
+        "sep2023_tpu_torch.heads, sep2023_tpu_torch.optimize, "
+        "sep2023_tpu_torch.ops.misfit, sep2023_tpu_torch.parallel, "
+        "sep2023_tpu_torch.testing\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'sep2023_tpu', 'triton')]\n"
         "assert not bad, bad\n"
@@ -114,3 +123,160 @@ def test_check_row_survey():
                                         np.array([3, 4])) is None
     assert cuda_engine.check_row_survey(np.array([7, 7]),
                                         np.array([3, 5])) is None
+
+
+def _broken_build(monkeypatch):
+    """A fresh process whose nvcc fails, and plain versions that must not
+    be reached."""
+    def broken_build():
+        raise RuntimeError("nvcc failed (simulated)")
+
+    def no_plain(*a, **k):
+        raise AssertionError("a CUDA entry point ran a plain version")
+
+    monkeypatch.setattr(_build, "_LIB", None)
+    monkeypatch.setattr(_build, "build", broken_build)
+    for name in ("forward_plain", "forward_plain_strips", "backward_plain",
+                 "reconstruct_plain"):
+        monkeypatch.setattr(cuda_engine, name, no_plain)
+    monkeypatch.setattr(cuda_engine.propagator, "propagate_shots", no_plain)
+
+
+def test_backward_entries_raise_when_build_fails(monkeypatch):
+    _broken_build(monkeypatch)
+    lam, mu, rho, stf, sz, sx, rxz = _inputs(device="meta")
+    S, n = 2, cuda_engine.propagator.strip_len(CFG)
+    meta = lambda *shape: torch.zeros(shape, device="meta")
+    final = meta(5, S, CFG.nz, CFG.nx)
+    strips = meta(S, CFG.nt - 1, 5, n)
+    d = meta(S, 4, RS.n_rec, CFG.nt)
+    before = (cuda_engine.LAUNCHES, cuda_engine.LAUNCHES_BWD)
+    with pytest.raises(RuntimeError, match="simulated"):
+        cuda_engine.forward_cuda(CFG, RS, lam, mu, rho, stf, sz, sx, rxz,
+                                 save_strips=True)
+    with pytest.raises(RuntimeError, match="simulated"):
+        cuda_engine.backward_cuda(CFG, RS, lam, mu, rho, stf, sz, sx, rxz,
+                                  final, strips, d)
+    with pytest.raises(RuntimeError, match="simulated"):
+        cuda_engine.reconstruct_cuda(CFG, RS, lam, mu, rho, stf, sz, sx, rxz,
+                                     final, strips)
+    assert (cuda_engine.LAUNCHES, cuda_engine.LAUNCHES_BWD) == before
+
+
+def test_backward_cuda_rejects_bad_residuals():
+    lam, mu, rho, stf, sz, sx, rxz = _inputs()
+    final = torch.zeros(5, 2, CFG.nz, CFG.nx)
+    strips = torch.zeros(2, CFG.nt - 1, 5,
+                         cuda_engine.propagator.strip_len(CFG))
+    d = torch.zeros(2, 4, RS.n_rec, CFG.nt)
+    with pytest.raises(ValueError, match="strips must be"):
+        cuda_engine.backward_cuda(CFG, RS, lam, mu, rho, stf, sz, sx, rxz,
+                                  final, strips[:, :-1].contiguous(), d)
+    with pytest.raises(ValueError, match="d_data must be"):
+        cuda_engine.backward_cuda(CFG, RS, lam, mu, rho, stf, sz, sx, rxz,
+                                  final, strips, d[..., :-1].contiguous())
+    with pytest.raises(TypeError, match="float32"):
+        cuda_engine.backward_cuda(CFG, RS, lam, mu, rho, stf, sz, sx, rxz,
+                                  final.double(), strips, d)
+
+
+# A row survey on CFG's grid (padded rec_z 15) and a two-row one.
+SURVEYS = {
+    "row": dict(src_z=np.array([2, 2]), src_x=np.array([6, 14]),
+                rec_z=np.full(10, 11), rec_x=np.arange(1, 11)),
+    "two_rows": dict(src_z=np.array([2, 2]), src_x=np.array([6, 14]),
+                     rec_z=np.repeat([11, 12], 5), rec_x=np.arange(1, 11)),
+}
+
+
+@pytest.mark.parametrize("entry", ["propagate_cuda", "make_cuda_misfit",
+                                   "apply_gradient"])
+@pytest.mark.parametrize("case,exc,match", [
+    ("two_rows", NotImplementedError, "K1-fiber"),
+    ("f64", NotImplementedError, "float32"),
+    ("build", RuntimeError, "simulated"),
+])
+def test_gradient_entries_off_cpu_raise(monkeypatch, entry, case, exc,
+                                        match):
+    """On a device that is not the CPU, the invert path's entry points run
+    the kernels or raise: never the plain propagator."""
+    _broken_build(monkeypatch)
+    sv = Survey(**SURVEYS["two_rows" if case == "two_rows" else "row"])
+    dtype = torch.float64 if case == "f64" else torch.float32
+    lam, mu, rho, stf, _, _, _ = _inputs(device="meta", dtype=dtype)
+    params = [a.requires_grad_() for a in (lam, mu, rho, stf)]
+    cfg = CFG
+    with pytest.raises(exc, match=match):
+        if entry == "propagate_cuda":
+            rs = cuda_engine.check_row_survey(sv.rec_z + cfg.npml,
+                                              sv.rec_x + cfg.npml)
+            out = cuda_engine.propagate_cuda(
+                cfg, rs, *params, sv.src_z + cfg.npml, sv.src_x + cfg.npml,
+                sv.src_rxz)
+            out.sum().backward()
+        elif entry == "make_cuda_misfit":
+            loss = parallel.make_cuda_misfit(cfg, sv)
+            obs = torch.zeros((2, 4, sv.n_rec, cfg.nt), device="meta",
+                              dtype=dtype)
+            loss(*params, obs, torch.ones(2, device="meta", dtype=dtype))
+        else:
+            model = api.Model(nx=cfg.nx - 8, nz=cfg.nz - 8, dx=20.0,
+                              dz=20.0, nt=cfg.nt, dt=cfg.dt, nPml=4,
+                              vp=np.full((16, 22), 3000.0),
+                              vs=np.full((16, 22), 1700.0),
+                              rho=np.full((16, 22), 2500.0))
+            prop = api.ElasticPropagator(model, sv, device="meta",
+                                         dtype=dtype)
+            prop.apply_gradient(model, np.zeros((2, 4, sv.n_rec, cfg.nt)))
+
+
+def test_apply_gradient_one_device_only():
+    model = api.Model(nx=22, nz=16, dx=20.0, dz=20.0, nt=12, dt=0.002,
+                      nPml=4, vp=np.full((16, 22), 3000.0),
+                      vs=np.full((16, 22), 1700.0),
+                      rho=np.full((16, 22), 2500.0))
+    prop = api.ElasticPropagator(model, Survey(**SURVEYS["row"]),
+                                 device="cpu")
+    with pytest.raises(NotImplementedError, match="M10"):
+        prop.apply_gradient(model, np.zeros((2, 4, 10, 12)), n_devices=2)
+
+
+def test_cli_invert_on_cuda_without_a_card_raises(tmp_path, monkeypatch):
+    """`invert --device cuda` (the default) without a card raises; it does
+    not fall back to the CPU."""
+    _broken_build(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        cli.main(["invert", "--nz", "16", "--nx", "24", "--nt", "12",
+                  "--npml", "4", "--exp-name", str(tmp_path)])
+
+
+def test_backward_kernel_has_no_atomics():
+    """Every transpose is a gather: no atomic operation in the code of the
+    backward kernel or the code it shares (comments aside)."""
+    for name in ("elastic_bwd.cu", "elastic_common.cuh"):
+        src = (REPO / "sep2023_tpu_torch" / "csrc" / name).read_text()
+        code = re.sub(r"//[^\n]*", "", src)
+        assert "__global__" in code or name.endswith(".cuh")
+        assert not re.search(r"atomic", code, re.IGNORECASE), name
+
+
+def test_streamed_scale_gradient_raises_on_the_card(monkeypatch):
+    """Past the JAX package's fused range (560x720 padded) a gradient on a
+    device that is not the CPU raises, naming K3/K4, before any launch."""
+    _broken_build(monkeypatch)
+    cfg = SimConfig(nz=560, nx=720, dz=10.0, dx=10.0, nt=12, dt=0.001,
+                    f0=10.0, npml=32)
+    rs = cuda_engine.RowSurvey(rec_row=500, rec_x0=40, n_rec=600)
+    meta = lambda *shape: torch.zeros(shape, device="meta")
+    lam, mu, rho = (meta(560, 720).requires_grad_() for _ in range(3))
+    stf = meta(2, 12).requires_grad_()
+    idx = (np.full(2, 33), np.array([100, 600]), np.ones(2))
+    with pytest.raises(NotImplementedError, match="K3/K4"):
+        cuda_engine.propagate_cuda(cfg, rs, lam, mu, rho, stf, *idx)
+    with pytest.raises(NotImplementedError, match="K3/K4"):
+        cuda_engine.backward_cuda(
+            cfg, rs, lam.detach(), mu.detach(), rho.detach(), stf.detach(),
+            *idx, meta(5, 2, 560, 720),
+            meta(2, 11, 5, cuda_engine.propagator.strip_len(cfg)),
+            meta(2, 4, 600, 12))
