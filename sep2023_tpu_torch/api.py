@@ -14,10 +14,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from sep2023_tpu_torch import parallel, propagator
+from sep2023_tpu_torch import parallel
 from sep2023_tpu_torch.config import SimConfig, Survey, ricker
 from sep2023_tpu_torch.medium import pad_model
-from sep2023_tpu_torch.ops import cuda_engine
 
 
 @dataclasses.dataclass
@@ -41,11 +40,13 @@ class ElasticPropagator:
     """Forward modeling and adjoint gradients for one (model, survey) pair
     on one device.
 
-    A float32 row survey (one receiver row, contiguous x) runs through
-    `cuda_engine`: the CUDA kernels on a CUDA device, their plain versions
-    on the CPU.  On the CPU any other survey or dtype runs the plain
-    propagator, the counterpart of the JAX package's XLA engine; on any
-    other device it raises, since the kernels cannot take it."""
+    A float32 survey that fits a plan (a receiver row, a multi-row spread,
+    a column, a fiber, a ragged union: `parallel._cuda_plan`) runs
+    through `cuda_engine`: the CUDA kernels on a CUDA device, their plain
+    versions on the CPU.  On the CPU any other survey or dtype runs the
+    plain propagator, the counterpart of the JAX package's XLA engine; on
+    any other device it raises, since the kernels cannot take it.
+    `self.rs` is the planned RowSurvey or FiberSurvey, or None."""
 
     def __init__(self, model: Model, survey: Survey, f0: float = 10.0, *,
                  device="cuda", dtype=torch.float32):
@@ -53,25 +54,27 @@ class ElasticPropagator:
         self.survey = survey
         self.device = torch.device(device)
         self.dtype = dtype
-        row = (None if survey.ragged
-               else cuda_engine.check_row_survey(survey.rec_z + model.nPml,
-                                                 survey.rec_x + model.nPml))
-        if self.device.type != "cpu":
-            if row is None:
-                raise NotImplementedError(
-                    "the CUDA kernel records one contiguous receiver row; "
-                    "ragged or multi-row surveys need FiberSurvey recording "
-                    "(ROADMAP K1-fiber).  device='cpu' runs the plain "
-                    "propagator.")
-            if dtype != torch.float32:
-                raise NotImplementedError(
-                    f"the CUDA kernel computes in float32, not {dtype}.  "
-                    "device='cpu' runs the plain propagator.")
-        self.rs = row if dtype == torch.float32 else None
         self.cfg = SimConfig(nz=model.nz + 2 * model.nPml,
                              nx=model.nx + 2 * model.nPml,
                              dz=model.dz, dx=model.dx, nt=model.nt,
                              dt=model.dt, f0=f0, npml=model.nPml)
+        planned = None
+        if dtype == torch.float32:
+            try:
+                planned = parallel._cuda_plan(self.cfg, survey)
+            except ValueError:  # no plan takes the survey
+                pass
+        if self.device.type != "cpu":
+            if dtype != torch.float32:
+                raise NotImplementedError(
+                    f"the CUDA kernel computes in float32, not {dtype}.  "
+                    "device='cpu' runs the plain propagator.")
+            if planned is None:
+                raise ValueError(
+                    "the survey's receivers lie outside the range the CUDA "
+                    "kernels record.  device='cpu' runs the plain "
+                    "propagator.")
+        self.rs = None if planned is None else planned[0].rs
         self.geoms = parallel.survey_to_geoms(survey, model.nPml,
                                               device=self.device, dtype=dtype)
         stf = torch.as_tensor(ricker(f0, model.nt, model.dt), dtype=dtype,
@@ -93,14 +96,11 @@ class ElasticPropagator:
         lam, mu, rr = self._padded(vp if vp is not None else m.vp,
                                    vs if vs is not None else m.vs,
                                    rho if rho is not None else m.rho)
-        if self.rs is not None:
-            g = self.geoms
-            data = cuda_engine.forward_cuda(self.cfg, self.rs, lam, mu, rr,
-                                            self.stf, g.src_z, g.src_x, g.rxz)
-        else:  # only on the CPU: __init__ raises elsewhere
-            data = propagator.propagate_shots(self.cfg, lam, mu, rr,
-                                              self.stf, self.geoms)
-        return data.cpu().numpy()
+        # without a plan only on the CPU: __init__ raises elsewhere
+        fwd = parallel.make_forward(self.cfg, self.survey,
+                                    use_kernels=self.rs is not None,
+                                    device=self.device, dtype=self.dtype)
+        return fwd(lam, mu, rr, self.stf).cpu().numpy()
 
     def apply_gradient(self, model_init: Model, obs: np.ndarray,
                        channels: Sequence[str] = ("ett",),

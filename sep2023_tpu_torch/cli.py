@@ -85,14 +85,13 @@ def cmd_forward(args):
         raise NotImplementedError(
             "acoustic forward is not ported yet (ROADMAP M9, kernel K5)")
 
-    rs = cuda_engine.check_row_survey(survey.rec_z + cfg.npml,
-                                      survey.rec_x + cfg.npml)
+    plan, _ = parallel._cuda_plan(cfg, survey)
     engine = "CUDA kernel" if device.type == "cuda" else "plain (CPU)"
+    src = (survey.src_z + cfg.npml, survey.src_x + cfg.npml, survey.src_rxz)
 
     def fwd():
-        data = cuda_engine.forward_cuda(
-            cfg, rs, med.lam, med.mu, med.rho, stf, geoms.src_z, geoms.src_x,
-            geoms.rxz)
+        data = cuda_engine.forward_cuda_plan(plan, med.lam, med.mu, med.rho,
+                                             stf, *src)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return data
@@ -199,21 +198,23 @@ def cmd_invert(args):
                                   bounds=bounds)
 
     if args.shot_chunk < 0:
-        # shots in flight per gradient so that the boundary strips fit
+        # shots in flight per gradient so that the boundary strips and the
+        # state planes fit
         isz = 8 if args.x64 else 4
         args.shot_chunk = parallel.auto_shot_chunk(
             cfg, survey.n_shots, itemsize=isz, device=device)
         if args.shot_chunk:
-            gb = parallel.strip_bytes_per_shot(cfg, itemsize=isz) / 2 ** 30
+            gb = (parallel.strip_bytes_per_shot(cfg, itemsize=isz)
+                  + parallel.state_bytes_per_shot(cfg, itemsize=isz)) / 2 ** 30
             print(f"shot-chunk auto: {args.shot_chunk} shots/chunk "
-                  f"(~{gb:.2f} GB strips/shot)")
-    # a CUDA device runs the kernels (row surveys, float32) and raises for
-    # anything else; the plain propagator runs on the CPU only
+                  f"(~{gb:.2f} GB strips and planes/shot)")
+    # a CUDA device runs the kernels (float32, any grid size) and raises
+    # for anything else; the plain propagator runs on the CPU only
     use_kernels = device.type == "cuda"
     if use_kernels:
-        cuda_engine.check_fused_range(cfg)
-    print("engine: " + ("CUDA kernels (elastic_fwd.cu + elastic_bwd.cu)"
-                        if use_kernels else "plain PyTorch (CPU)"))
+        plan, _ = parallel._cuda_plan(cfg, survey)
+    print("engine: " + (cuda_engine.plan_engine_name(plan) if use_kernels
+                        else "plain PyTorch (CPU)"))
     fwd = parallel.make_forward(cfg, survey, use_kernels=use_kernels,
                                 shot_chunk=args.shot_chunk, device=device,
                                 dtype=dtype)

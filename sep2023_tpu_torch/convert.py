@@ -9,6 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sep2023_tpu_torch.config import Survey
+from sep2023_tpu_torch.ops import cuda_engine
 from sep2023_tpu_torch.propagator import ShotGeom
 
 
@@ -26,3 +28,37 @@ def params_from_numpy(lam, mu, rho, stf, geoms, *, device,
                     rec_x=i(geoms.rec_x),
                     das_w=None if das_w is None else t(das_w))
     return t(lam), t(mu), t(rho), t(stf), geom
+
+
+def survey_from_jax(survey) -> Survey:
+    """The port's Survey from any object with the Survey field names (the
+    JAX package's Survey included), field by field as numpy."""
+    opt = lambda a: None if a is None else np.asarray(a)
+    return Survey(
+        src_z=np.asarray(survey.src_z), src_x=np.asarray(survey.src_x),
+        rec_z=np.asarray(survey.rec_z), rec_x=np.asarray(survey.rec_x),
+        src_rxz=opt(survey.src_rxz), win_start=opt(survey.win_start),
+        win_end=opt(survey.win_end), trace_weights=opt(survey.trace_weights),
+        src_weights=opt(survey.src_weights), rec_live=opt(survey.rec_live))
+
+
+def plan_inputs(cfg, survey, das_w=None):
+    """What both packages' planners and plan propagators take, from one
+    physical-grid Survey (either package's) and its numpy (R, 3) fiber
+    weights: ((rec_z, rec_x, das_w), (src_z, src_x, rxz)) on the padded
+    grid, receivers in the survey's order."""
+    n = cfg.npml
+    das_w = None if das_w is None else np.asarray(das_w, np.float64)
+    return ((np.asarray(survey.rec_z) + n, np.asarray(survey.rec_x) + n,
+             das_w),
+            (np.asarray(survey.src_z) + n, np.asarray(survey.src_x) + n,
+             np.asarray(survey.src_rxz, np.float32)))
+
+
+def fiber_survey_from_jax(fs) -> cuda_engine.FiberSurvey:
+    """The port's FiberSurvey from the JAX package's (read by its field
+    names).  There receiver r sits on lane rec_x[r] at the row that its
+    layer's row map holds for that lane; both keep the caller's receiver
+    order, so data compare without a permutation."""
+    rec_z = [fs.rowmaps[k][x] for k, x in zip(fs.rec_layer, fs.rec_x)]
+    return cuda_engine.make_fiber_survey(rec_z, fs.rec_x, fs.weights)

@@ -6,7 +6,11 @@
 //
 // Replaces sep2023_tpu/ops/pallas_engine.py::_run_backward (the K2 Pallas
 // kernel, pallas_call at line 1186, body _bwd_kernel at line 924, full
-// variant, phase-split adjoint).  It computes what K2 computes, in reverse
+// variant, phase-split adjoint), for a RowSurvey and for a FiberSurvey.  At
+// grids past the TPU's VMEM range the JAX package runs the same backward as
+// pallas_stream.py::_make_bwd_megastep (K4, pallas_call at line 1794); all
+// state here lives in device memory at any grid size, so this file is K4's
+// counterpart too.  It computes what K2 computes, in reverse
 // time, for all shots: strip injection and the interior reconstruction with
 // the source subtracted (no CPML), the data cotangent injected at the
 // receivers, the adjoint of the velocity and stress half-steps with their
@@ -41,6 +45,20 @@
 // no thread writes in it.  After the loop one launch sums the per-shot
 // gradient planes over shots in a fixed order.
 //
+// Point receivers (K1-fiber's transpose).  A receiver at (z, x) sampled vx at
+// (z, x), (z, x-1), (z+1, x) and vz at (z, x), (z-1, x), (z, x+1), and
+// neighbours on a cable overlap, so one cell can take cotangent from several
+// receivers.  A scatter would need atomics and would change the gradient
+// from run to run.  Instead the wrapper builds, once per plan, a table in
+// compressed-row form: one row per touched (adjoint plane, cell), its
+// entries (receiver, channel, coefficient) in a fixed order.  One extra
+// launch a step, inject_points_kernel, before the velocity launch: one
+// thread per (shot, row) sums its entries against the data cotangent of
+// recording index it+1 and adds the sum to its cell of the carried adjoint
+// plane (vz, vx, szz or sxx), which the next two launches then read as
+// before.  So a fiber backward is 3 (nt-1) + 1 launches, a row backward
+// 2 (nt-1) + 1 with the receivers found by arithmetic inside the launches.
+//
 // What bounds it on this card: 215 FP32 operations per cell-step
 // (reconstruction, both adjoint phases, 8 stencils and 8 transposes, the
 // accumulation; chip_smoke.py counts them) and, counting each input once
@@ -61,6 +79,7 @@ namespace {
 using namespace elastic;
 
 constexpr int kSumThreads = 256;
+constexpr int kInjThreads = 128;
 
 // Plane order of the work buffer (21, S, nz, nx): the adjoint fields (Field
 // order), the adjoint psi (propagator.Psi order), and the 8 stencil
@@ -81,13 +100,20 @@ struct Params {
   const float* rxz;     // (S,)
   const float* strips;  // (S, nt-1, 5, strip n)
   const float* d_data;  // (S, 4, R, nt)
+  // point receivers: the injection table, or inj_ptr null for a receiver row
+  const int* inj_ptr;      // (n_inj + 1,) entry range of each row
+  const int* inj_plane;    // (n_inj,) A_VZ, A_VX, A_SZZ or A_SXX
+  const int* inj_cell;     // (n_inj,) z * nx + x
+  const int* ent_rec;      // (n_ent,) receiver
+  const int* ent_ch;       // (n_ent,) channel 0..3
+  const float* ent_coef;   // (n_ent,)
   float* fields;        // (5, S, nz, nx): the final fields in, state_0 out
   float* work;          // (21, S, nz, nx), zeroed
   float* gshot;         // (S, 5, nz, nx), zeroed
   float* gmat;          // (5, nz, nx)
   float* d_stf;         // (S, nt), zeroed
   int S, nz, nx, nt;
-  int rec_row, rec_x0, n_rec, ett_ezz, npml;
+  int rec_row, rec_x0, n_rec, ett_ezz, n_inj, npml;
   float dt, src_amp;    // src_amp = src_scale * dt
   StripGeom sg;
 };
@@ -160,6 +186,21 @@ __device__ __forceinline__ float d_rec(const Params& p, int s, int ch, int r,
                   it + 1];
 }
 
+// Point receivers' cotangent of recording index it + 1 (see the note at the
+// top): one thread per (shot, table row), entries summed in table order.
+__global__ void inject_points_kernel(Params p, int it) {
+  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+  if (idx >= static_cast<size_t>(p.S) * p.n_inj) return;
+  const int s = static_cast<int>(idx / p.n_inj);
+  const int t = static_cast<int>(idx % p.n_inj);
+  float acc = 0.0f;
+  for (int j = p.inj_ptr[t]; j < p.inj_ptr[t + 1]; ++j) {
+    acc += p.ent_coef[j] * d_rec(p, s, p.ent_ch[j], p.ent_rec[j], it);
+  }
+  work(p, p.inj_plane[t], s)[p.inj_cell[t]] += acc;
+}
+
 // Velocity launch of reverse step it (see the note at the top).
 __global__ void bwd_velocity_kernel(Params p, int it) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
@@ -179,23 +220,26 @@ __global__ void bwd_velocity_kernel(Params p, int it) {
   float vx_bar = work(p, A_VX, s)[c] + dx_minus_t(work(p, D2, s), z, x, nz, nx)
                  + dz_plus_t(work(p, D3, s), z, x, nz, nx);
 
-  // the receivers' cotangent (propagator._record transposed)
-  const int r = x - p.rec_x0;
-  const bool on_row = r >= 0 && r < p.n_rec;
-  if (z == p.rec_row && on_row) {
-    vx_bar += d_rec(p, s, 1, r, it);
-    vz_bar += d_rec(p, s, 2, r, it);
-    if (p.ett_ezz) {
-      vz_bar += d_rec(p, s, 3, r, it);   // ett = vz[r, x] - vz[r-1, x]
-    } else {
-      vx_bar += d_rec(p, s, 3, r, it);   // ett = vx[r, x] - vx[r, x-1]
+  // a receiver row's cotangent (propagator._record transposed); point
+  // receivers' arrived in the carried planes (inject_points_kernel)
+  if (p.inj_ptr == nullptr) {
+    const int r = x - p.rec_x0;
+    const bool on_row = r >= 0 && r < p.n_rec;
+    if (z == p.rec_row && on_row) {
+      vx_bar += d_rec(p, s, 1, r, it);
+      vz_bar += d_rec(p, s, 2, r, it);
+      if (p.ett_ezz) {
+        vz_bar += d_rec(p, s, 3, r, it);   // ett = vz[r, x] - vz[r-1, x]
+      } else {
+        vx_bar += d_rec(p, s, 3, r, it);   // ett = vx[r, x] - vx[r, x-1]
+      }
     }
-  }
-  if (!p.ett_ezz && z == p.rec_row && r + 1 >= 0 && r + 1 < p.n_rec) {
-    vx_bar -= d_rec(p, s, 3, r + 1, it);
-  }
-  if (p.ett_ezz && z == p.rec_row - 1 && on_row) {
-    vz_bar -= d_rec(p, s, 3, r, it);
+    if (!p.ett_ezz && z == p.rec_row && r + 1 >= 0 && r + 1 < p.n_rec) {
+      vx_bar -= d_rec(p, s, 3, r + 1, it);
+    }
+    if (p.ett_ezz && z == p.rec_row - 1 && on_row) {
+      vz_bar -= d_rec(p, s, 3, r, it);
+    }
   }
 
   // the velocity stencils of the stresses after step it
@@ -263,7 +307,7 @@ __global__ void bwd_stress_kernel(Params p, int it) {
   const float* px = p.prof_x;
 
   // total cotangents of the stresses after step it: carried, plus the
-  // velocity stencils transposed, plus pr at the receivers
+  // velocity stencils transposed, plus pr on a receiver row
   float szz_bar = work(p, A_SZZ, s)[c]
                   + dz_plus_t(work(p, D5, s), z, x, nz, nx);
   float sxx_bar = work(p, A_SXX, s)[c]
@@ -272,7 +316,7 @@ __global__ void bwd_stress_kernel(Params p, int it) {
                         + dx_minus_t(work(p, D6, s), z, x, nz, nx)
                         + dz_minus_t(work(p, D7, s), z, x, nz, nx);
   const int r = x - p.rec_x0;
-  if (z == p.rec_row && r >= 0 && r < p.n_rec) {
+  if (p.inj_ptr == nullptr && z == p.rec_row && r >= 0 && r < p.n_rec) {
     const float pr = d_rec(p, s, 0, r, it);
     szz_bar += pr;
     sxx_bar += pr;
@@ -369,7 +413,9 @@ __global__ void sum_shots_kernel(Params p) {
 }  // namespace
 
 // Runs the nt-1 reverse steps for all shots and the shot sum on `stream`
-// (2 (nt-1) + 1 launches); returns the first CUDA error (0 on success).
+// (2 (nt-1) + 1 launches for a receiver row, 3 (nt-1) + 1 with an injection
+// table of n_inj rows for point receivers, inj_ptr null and n_inj 0
+// otherwise); returns the first CUDA error (0 on success).
 // Does not synchronise and allocates nothing: `fields` holds the final
 // fields and is overwritten with the reconstructed fields at t=0; `work`,
 // `gshot` and `d_stf` arrive zeroed; `gmat` receives the gradients.
@@ -377,23 +423,36 @@ extern "C" int elastic_backward(const float* mats, const float* prof_z,
                                 const float* prof_x, const float* stf,
                                 const int* src_z, const int* src_x,
                                 const float* rxz, const float* strips,
-                                const float* d_data, float* fields,
+                                const float* d_data, const int* inj_ptr,
+                                const int* inj_plane, const int* inj_cell,
+                                const int* ent_rec, const int* ent_ch,
+                                const float* ent_coef, float* fields,
                                 float* work, float* gshot, float* gmat,
                                 float* d_stf, int S, int nz, int nx, int nt,
                                 int rec_row, int rec_x0, int n_rec,
-                                int ett_ezz, int npml, int n_bnd, float dt,
-                                float src_amp, void* stream) {
+                                int ett_mode, int n_inj, int npml, int n_bnd,
+                                float dt, float src_amp, void* stream) {
   Params p{mats, prof_z, prof_x, stf, src_z, src_x, rxz, strips, d_data,
+           inj_ptr, inj_plane, inj_cell, ent_rec, ent_ch, ent_coef,
            fields, work, gshot, gmat, d_stf, S, nz, nx, nt, rec_row, rec_x0,
-           n_rec, ett_ezz, npml, dt, src_amp,
+           n_rec, ett_mode == elastic::ETT_EZZ, n_inj, npml, dt, src_amp,
            strip_geom(nz, nx, npml, n_bnd)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 block(kBlockX, kBlockZ, 1);
   const dim3 grid((nx + kBlockX - 1) / kBlockX, (nz + kBlockZ - 1) / kBlockZ,
                   S);
+  const size_t inj_threads = static_cast<size_t>(S) * n_inj;
+  const int inj_blocks =
+      static_cast<int>((inj_threads + kInjThreads - 1) / kInjThreads);
   for (int it = nt - 2; it >= 0; --it) {
+    cudaError_t err;
+    if (inj_ptr != nullptr) {
+      inject_points_kernel<<<inj_blocks, kInjThreads, 0, st>>>(p, it);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
     bwd_velocity_kernel<<<grid, block, 0, st>>>(p, it);
-    cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     bwd_stress_kernel<<<grid, block, 0, st>>>(p, it);
     err = cudaGetLastError();

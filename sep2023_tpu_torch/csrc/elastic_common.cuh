@@ -38,6 +38,10 @@ enum Field { F_VZ = 0, F_VX, F_SZZ, F_SXX, F_SXZ };
 // Material planes (5, nz, nx): lam, lam + 2 mu, harmonic mu, two buoyancies.
 enum Mat { LAM = 0, LP2M, AVE_MU, BYC_A, BYC_B };
 
+// The ett channel: vx[z,x] - vx[z,x-1], vz[z,x] - vz[z-1,x] (neither divided
+// by the spacing), or the weighted fiber strain w0 exx + w1 exz + w2 ezz.
+enum EttMode { ETT_EXX = 0, ETT_EZZ, ETT_WEIGHTED };
+
 // Profile rows: prof_z (6, nz) and prof_x (6, nx), as cpml.CpmlScaled.
 enum Prof { IK = 0, A, B, IK_H, A_H, B_H };
 

@@ -1,16 +1,21 @@
 // Elastic forward modeling on Hopper: nt-1 leapfrog steps of the O(4)
 // staggered velocity-stress scheme with division-free CPML, an explosive
-// point source and row recording of (pr, vx, vz, ett), for all shots, and
-// optionally the boundary strips of every step for the gradient.
+// point source and recording of (pr, vx, vz, ett) on a receiver row or at
+// arbitrary receiver points, for all shots, and optionally the boundary
+// strips of every step for the gradient.
 //
 // Replaces sep2023_tpu/ops/pallas_engine.py::_run_forward (the K1 Pallas
 // kernel, pallas_call at line 875, body _fwd_body/_step_values/_record_rows),
 // with save_strips False (forward modeling) and True (the gradient's
-// forward, _pp_fwd).  It computes what K1 computes; it does not copy K1's
+// forward, _pp_fwd), for a RowSurvey and for a FiberSurvey (K1-fiber).  At
+// grids past the TPU's VMEM range the JAX package runs the same physics as
+// pallas_stream.py::_make_fwd_megastep (K3, pallas_call at line 1243); all
+// state here lives in device memory at any grid size, so this file is K3's
+// counterpart too.  It computes what K1 computes; it does not copy K1's
 // TPU layout (no 128-lane padding, no cyclic rolls, no VMEM ring, no DMA
-// chunking, no lr/tb strip staging).  A stencil neighbour outside the grid
-// reads as 0, the zero-padded edge of ops/fd.py; inside the update mask
-// [2, n-3] both edge rules give the same values.
+// chunking, no lr/tb strip staging, no z-tiles, no ghost steps).  A stencil
+// neighbour outside the grid reads as 0, the zero-padded edge of ops/fd.py;
+// inside the update mask [2, n-3] both edge rules give the same values.
 //
 // What bounds it on this card: each cell-step does 102 FP32 operations
 // (8 stencils, 8 CPML recursions, the increments; chip_smoke.py counts
@@ -36,6 +41,15 @@
 // Recording is its own launch: the ett sample vx[r,x] - vx[r,x-1] is taken
 // on the post-update field, and a neighbour's new vx is not visible inside
 // the launch that writes it.
+//
+// Point recording (K1-fiber).  The TPU kernel records full-width rows by a
+// masked sublane reduction against K per-lane row maps, because Mosaic
+// cannot gather; a CUDA thread can, so record_points_kernel is one thread
+// per (shot, receiver) that reads its own (z, x) from a table, and the K
+// layers, row maps and lane weights are not carried over.  A column of
+// receivers (the TPU package's transposed plan) is just such a table.  The
+// work is R receivers x 4 samples a step, bound by the launch, not by bytes
+// or operations.
 //
 // Rounding: the stencils, the interior increments and the source use the
 // shared code of elastic_common.cuh, with explicit rounding, so that the
@@ -64,12 +78,16 @@ struct Params {
   const int* src_z;     // (S,)
   const int* src_x;     // (S,)
   const float* rxz;     // (S,)
+  const int* rec_z;     // (R,) receiver points, or null for a receiver row
+  const int* rec_x;     // (R,)
+  const float* rec_w;   // (R, 3) weights of (exx, exz, ezz), for ETT_WEIGHTED
   float* state;         // (13, S, nz, nx)
   float* data;          // (S, 4, R, nt)
   float* strips;        // (S, nt-1, 5, strip n), or null
   int S, nz, nx, nt;
-  int rec_row, rec_x0, n_rec, ett_ezz;
+  int rec_row, rec_x0, n_rec, ett_mode;
   float dt, src_amp;    // src_amp = src_scale * dt
+  float inv_dz, inv_dx;
   StripGeom sg;
 };
 
@@ -188,7 +206,8 @@ __global__ void record_kernel(Params p, int it) {
   const float* vx = plane(p, F_VX, s);
   const float pr = plane(p, F_SZZ, s)[c] + plane(p, F_SXX, s)[c];
   // ett is not divided by the spacing (recording_exx / recording_ezz)
-  const float ett = p.ett_ezz ? vz[c] - vz[c - nx] : vx[c] - vx[c - 1];
+  const float ett = p.ett_mode == ETT_EZZ ? vz[c] - vz[c - nx]
+                                          : vx[c] - vx[c - 1];
   const size_t ch = static_cast<size_t>(p.n_rec) * p.nt;
   float* out = p.data + static_cast<size_t>(s) * 4 * ch +
                static_cast<size_t>(r) * p.nt + it + 1;
@@ -198,24 +217,74 @@ __global__ void record_kernel(Params p, int it) {
   out[3 * ch] = ett;
 }
 
+// Point recording (propagator._record at arbitrary receivers, exx, ezz or
+// weighted): data[s, :, r, it + 1], one thread per (shot, receiver).  The
+// x-shifted sample stays on the receiver's own row.  A neighbour outside
+// the grid reads as 0; the wrapper keeps every receiver inside
+// 1 <= z <= nz-2, 0 <= x < nx.  The weighted sample is rounded step by step
+// in the plain version's order: (w0 exx + w1 exz) + w2 ezz, each strain a
+// difference times the reciprocal spacing.
+__global__ void record_points_kernel(Params p, int it) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= p.S * p.n_rec) return;
+  const int s = idx / p.n_rec;
+  const int r = idx % p.n_rec;
+  const int nz = p.nz, nx = p.nx;
+  const int z = p.rec_z[r], x = p.rec_x[r];
+  const size_t c = static_cast<size_t>(z) * nx + x;
+  const float* vz = plane(p, F_VZ, s);
+  const float* vx = plane(p, F_VX, s);
+  const float vz_c = vz[c], vx_c = vx[c];
+  const float pr = plane(p, F_SZZ, s)[c] + plane(p, F_SXX, s)[c];
+  const float d_xx = __fsub_rn(vx_c, at(vx, z, x - 1, nz, nx));
+  const float d_zz = __fsub_rn(vz_c, at(vz, z - 1, x, nz, nx));
+  float ett;
+  if (p.ett_mode == ETT_EXX) {
+    ett = d_xx;  // not divided by the spacing (recording_exx)
+  } else if (p.ett_mode == ETT_EZZ) {
+    ett = d_zz;
+  } else {
+    const float* w = p.rec_w + 3 * static_cast<size_t>(r);
+    const float exx = __fmul_rn(d_xx, p.inv_dx);
+    const float ezz = __fmul_rn(d_zz, p.inv_dz);
+    const float exz = __fmul_rn(0.5f, __fadd_rn(
+        __fmul_rn(__fsub_rn(at(vx, z + 1, x, nz, nx), vx_c), p.inv_dz),
+        __fmul_rn(__fsub_rn(at(vz, z, x + 1, nz, nx), vz_c), p.inv_dx)));
+    ett = __fadd_rn(__fadd_rn(__fmul_rn(w[0], exx), __fmul_rn(w[1], exz)),
+                    __fmul_rn(w[2], ezz));
+  }
+  const size_t ch = static_cast<size_t>(p.n_rec) * p.nt;
+  float* out = p.data + static_cast<size_t>(s) * 4 * ch +
+               static_cast<size_t>(r) * p.nt + it + 1;
+  out[0] = pr;
+  out[ch] = vx_c;
+  out[2 * ch] = vz_c;
+  out[3 * ch] = ett;
+}
+
 }  // namespace
 
 // Runs all nt-1 steps for all shots on `stream`; returns the first CUDA
 // error (0 on success).  Does not synchronise and allocates nothing: the
 // caller passes a zeroed state and a zeroed data buffer, and either a strip
 // buffer of (S, nt-1, 5, 2 n_bnd (nz + nx)) floats, which every step fills,
-// or null.
+// or null.  Receivers: either a row (rec_z null; rec_row, rec_x0) or n_rec
+// points (rec_z, rec_x and, for ETT_WEIGHTED, rec_w), validated by the
+// caller.  Three launches a step either way.
 extern "C" int elastic_forward(const float* mats, const float* prof_z,
                                const float* prof_x, const float* stf,
                                const int* src_z, const int* src_x,
-                               const float* rxz, float* state, float* data,
-                               float* strips, int S, int nz, int nx, int nt,
-                               int rec_row, int rec_x0, int n_rec,
-                               int ett_ezz, int npml, int n_bnd, float dt,
-                               float src_amp, void* stream) {
-  Params p{mats, prof_z, prof_x, stf, src_z, src_x, rxz, state, data,
-           strips, S, nz, nx, nt, rec_row, rec_x0, n_rec, ett_ezz, dt,
-           src_amp, strip_geom(nz, nx, npml, n_bnd)};
+                               const float* rxz, const int* rec_z,
+                               const int* rec_x, const float* rec_w,
+                               float* state, float* data, float* strips,
+                               int S, int nz, int nx, int nt, int rec_row,
+                               int rec_x0, int n_rec, int ett_mode, int npml,
+                               int n_bnd, float dt, float src_amp,
+                               float inv_dz, float inv_dx, void* stream) {
+  Params p{mats, prof_z, prof_x, stf, src_z, src_x, rxz, rec_z, rec_x, rec_w,
+           state, data, strips, S, nz, nx, nt, rec_row, rec_x0, n_rec,
+           ett_mode, dt, src_amp, inv_dz, inv_dx,
+           strip_geom(nz, nx, npml, n_bnd)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 block(kBlockX, kBlockZ, 1);
   const dim3 grid((nx + kBlockX - 1) / kBlockX, (nz + kBlockZ - 1) / kBlockZ,
@@ -228,7 +297,11 @@ extern "C" int elastic_forward(const float* mats, const float* prof_z,
     velocity_kernel<<<grid, block, 0, st>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    record_kernel<<<rec_blocks, kRecThreads, 0, st>>>(p, it);
+    if (rec_z == nullptr) {
+      record_kernel<<<rec_blocks, kRecThreads, 0, st>>>(p, it);
+    } else {
+      record_points_kernel<<<rec_blocks, kRecThreads, 0, st>>>(p, it);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

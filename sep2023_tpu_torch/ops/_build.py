@@ -102,9 +102,9 @@ def load() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.elastic_forward.argtypes = [P] * 10 + [I] * 10 + [F, F, P]
+        lib.elastic_forward.argtypes = [P] * 13 + [I] * 10 + [F] * 4 + [P]
         lib.elastic_forward.restype = I
-        lib.elastic_backward.argtypes = [P] * 14 + [I] * 10 + [F, F, P]
+        lib.elastic_backward.argtypes = [P] * 20 + [I] * 11 + [F, F, P]
         lib.elastic_backward.restype = I
         lib.elastic_error_string.argtypes = [I]
         lib.elastic_error_string.restype = ctypes.c_char_p

@@ -3,9 +3,11 @@
 PyTorch counterpart of the single-device part of `sep2023_tpu/parallel.py`.
 All shots of a chunk run together (the shot axis is a batch dimension of the
 propagator and of the kernels); a long shot list runs in chunks whose
-boundary strips fit device memory (`auto_shot_chunk`), with the chunked
-gradient accumulator `_chunked_sum`.  Sharding shots over several cards is
-ROADMAP M10.
+boundary strips and state planes fit device memory (`auto_shot_chunk`),
+with the chunked gradient accumulator `_chunked_sum`.  Surveys reach the
+kernels through a plan (`_cuda_plan`): a receiver row, any other shared
+spread as point receivers, and ragged spreads as the union of their points
+with a per-shot gather.  Sharding shots over several cards is ROADMAP M10.
 
 Loss builders return
     loss(lam, mu, rho, stf, [geoms,] obs, weights)
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from sep2023_tpu_torch import propagator
@@ -61,11 +64,23 @@ def strip_bytes_per_shot(cfg: SimConfig, itemsize: int = 4) -> int:
             * itemsize)
 
 
+def state_bytes_per_shot(cfg: SimConfig, itemsize: int = 4) -> int:
+    """Plane bytes one shot's gradient holds in device memory beside its
+    strips: the forward's state, the backward's copy of the final fields,
+    its work planes and the per-shot gradient planes (44 planes of nz x nx;
+    7.7 MB a shot at 165x265, 296 MB at 814x2064, in float32)."""
+    ce = cuda_engine
+    planes = (ce.N_STATE_PLANES + propagator.N_FIELDS + ce.N_WORK_PLANES
+              + ce.N_GRAD_PLANES)
+    return planes * cfg.nz * cfg.nx * itemsize
+
+
 def hbm_budget_bytes(device=None) -> int:
-    """Boundary-strip budget for `auto_shot_chunk`: 3/8 of a CUDA device's
-    memory (`torch.cuda.mem_get_info`; the other 5/8 cover the model and
-    gradient planes, recordings and temporaries), or
-    FALLBACK_BUDGET_BYTES for a device that reports none (the CPU)."""
+    """Budget of `auto_shot_chunk` for the strips and state planes of the
+    shots in flight: 3/8 of a CUDA device's memory
+    (`torch.cuda.mem_get_info`; the other 5/8 cover the model planes,
+    recordings, cotangents and temporaries), or FALLBACK_BUDGET_BYTES for a
+    device that reports none (the CPU)."""
     device = torch.device("cpu" if device is None else device)
     if device.type != "cuda":
         return FALLBACK_BUDGET_BYTES
@@ -77,12 +92,13 @@ def auto_shot_chunk(cfg: SimConfig, n_shots: int, *,
                     budget_bytes: int | None = None, itemsize: int = 4,
                     device=None) -> int:
     """Shots in flight for gradient evaluations: the largest chunk whose
-    strips fit the budget (`hbm_budget_bytes(device)` when budget_bytes is
-    None), or 0 (unchunked) when every shot fits."""
+    strips and state planes fit the budget (`hbm_budget_bytes(device)` when
+    budget_bytes is None), or 0 (unchunked) when every shot fits."""
     if budget_bytes is None:
         budget_bytes = hbm_budget_bytes(device)
     n_shots = max(1, n_shots)
-    per_shot = strip_bytes_per_shot(cfg, itemsize)
+    per_shot = (strip_bytes_per_shot(cfg, itemsize)
+                + state_bytes_per_shot(cfg, itemsize))
     if per_shot * n_shots <= budget_bytes:
         return 0
     return max(1, min(n_shots, int(budget_bytes // per_shot)))
@@ -175,72 +191,120 @@ def make_local_misfit(cfg: SimConfig, channels: Sequence[str] = ("ett",),
     return loss
 
 
-def _row_survey(cfg: SimConfig, survey: Survey) -> cuda_engine.RowSurvey:
-    rs = (None if survey.ragged
-          else cuda_engine.check_row_survey(survey.rec_z + cfg.npml,
-                                            survey.rec_x + cfg.npml))
-    if rs is None:
-        raise NotImplementedError(
-            "the CUDA kernels record one contiguous receiver row; ragged, "
-            "multi-row and fiber surveys need FiberSurvey recording "
-            "(ROADMAP K1-fiber), a receiver column the transposed plan "
-            "(ROADMAP K1, transpose_plan)")
-    return rs
+def _cuda_plan(cfg: SimConfig, survey: Survey, das_w=None):
+    """(FastPlan, union indices) of the survey (`_pallas_plan`'s
+    counterpart).  A shared spread plans as it is; a ragged survey plans
+    the union of all its distinct receiver points, which the kernels record
+    once per shot, and comes with the (S, R_max) indices with which each
+    shot picks its own (padded) spread out of the union.  Raises ValueError
+    for a survey no plan takes."""
+    if survey.ragged:
+        if das_w is not None:
+            raise ValueError("ragged surveys with directional fiber weights "
+                             "need the plain propagator")
+        rz = survey.rec_z + cfg.npml
+        rx = survey.rec_x + cfg.npml
+        pairs = np.stack([rz.ravel(), rx.ravel()], axis=1)
+        uniq, inv = np.unique(pairs, axis=0, return_inverse=True)
+        plan = cuda_engine.plan_fast_path(cfg, uniq[:, 0], uniq[:, 1])
+        if plan is None:
+            raise ValueError("the ragged survey's union spread lies outside "
+                             "the recordable range")
+        return plan, torch.from_numpy(inv.reshape(rz.shape).astype(np.int64))
+    plan = cuda_engine.plan_fast_path(cfg, survey.rec_z + cfg.npml,
+                                      survey.rec_x + cfg.npml, das_w=das_w)
+    if plan is None:
+        raise ValueError("the survey's receivers lie outside the recordable "
+                         "range")
+    return plan, None
+
+
+def _gather_union(syn, uidx_c):
+    """(S, 4, R_union, nt) kernel output -> each shot's own (padded) spread
+    through its (R_max,) union indices; autograd carries the cotangent
+    back into the union."""
+    return torch.take_along_dim(syn, uidx_c[:, None, :, None], dim=2)
+
+
+def _over_shots(fn):
+    """A per-shot misfit fn(obs_s, syn_s, *aux_s) -> scalar as a function of
+    the whole chunk, (S,): a Python loop over the shot axis (the JAX
+    package's jax.vmap(fn)); autograd differentiates through it."""
+    return lambda o, s, *aux: torch.stack(
+        [fn(o[i], s[i], *(a[i] for a in aux)) for i in range(o.shape[0])])
 
 
 def make_cuda_misfit(cfg: SimConfig, survey: Survey,
                      channels: Sequence[str] = ("ett",),
-                     shot_chunk: int = 0):
-    """The kernels' L2 loss for a row survey (`make_pallas_misfit`'s
-    counterpart): loss(lam, mu, rho, stf, obs, weights), through
-    cuda_engine.propagate_cuda: the CUDA kernels on CUDA tensors, their
-    plain versions on CPU tensors.  Other surveys raise (ROADMAP
-    K1-fiber)."""
-    rs = _row_survey(cfg, survey)
+                     shot_chunk: int = 0, misfit_fn=None, das_w=None):
+    """The kernels' loss (`make_pallas_misfit`'s counterpart):
+    loss(lam, mu, rho, stf, obs, weights, *trace_aux), through
+    cuda_engine.propagate_cuda_plan: the CUDA kernels on CUDA tensors, their
+    plain versions on CPU tensors.
+
+    The survey must fit a plan (`_cuda_plan`: a receiver row, point
+    receivers, or a ragged union); das_w carries the (R, 3) fiber weights
+    when cfg.das_channel is 'weighted'.  misfit_fn(obs_s, syn_s, *aux_s) is
+    a per-shot objective on (4, R, nt) data returning a scalar (default: L2
+    on `channels`); it is applied shot by shot in a Python loop and the
+    weighted results are summed.  Every tensor of trace_aux leads with the
+    shot axis.  shot_chunk > 0 bounds the strip memory through the chunked
+    accumulator (`_chunked_sum`; gradients flow to the model and stf)."""
+    plan, uidx = _cuda_plan(cfg, survey, das_w)
     src_z = survey.src_z + cfg.npml
     src_x = survey.src_x + cfg.npml
     rxz = survey.src_rxz
-    fn = default_shot_misfit(channels)
+    fn = (default_shot_misfit(channels) if misfit_fn is None
+          else _over_shots(misfit_fn))
 
-    def loss(lam, mu, rho, stf, obs, weights):
+    def loss(lam, mu, rho, stf, obs, weights, *trace_aux):
         def chunk_loss(model, stf_c, rest_c, w_c):
-            (obs_c, shots) = rest_c
-            idx = shots.cpu().numpy()
-            syn = cuda_engine.propagate_cuda(cfg, rs, *model, stf_c,
-                                             src_z[idx], src_x[idx],
-                                             rxz[idx])
-            return (w_c * fn(obs_c, syn)).sum()
+            shots, obs_c, *aux_c = rest_c
+            idx = shots.numpy()
+            syn = cuda_engine.propagate_cuda_plan(
+                plan, *model, stf_c, src_z[idx], src_x[idx], rxz[idx])
+            if uidx is not None:
+                syn = _gather_union(syn, uidx[shots].to(syn.device))
+            return (w_c * fn(obs_c, syn, *aux_c)).sum()
 
         shots = torch.arange(stf.shape[0])
-        return _chunked_sum(chunk_loss, (lam, mu, rho), stf, (obs, shots),
-                            weights, shot_chunk)
+        return _chunked_sum(chunk_loss, (lam, mu, rho), stf,
+                            (shots, obs, *trace_aux), weights, shot_chunk)
 
     return loss
 
 
 def make_forward(cfg: SimConfig, survey: Survey, *, use_kernels: bool,
-                 shot_chunk: int = 0, device, dtype=torch.float32):
+                 shot_chunk: int = 0, device, dtype=torch.float32,
+                 das_w=None):
     """The forward for observed data (twin experiments), through the same
     engine as the loss: fwd(lam, mu, rho, stf) -> (S, 4, R, nt).  With
-    use_kernels, cuda_engine.forward_cuda on a row survey; else the plain
+    use_kernels, cuda_engine.forward_cuda_plan on the survey's plan (ragged
+    surveys come back on their padded (S, R_max) spreads); else the plain
     propagator.  Runs without autograd, in shot chunks."""
     S = survey.n_shots
     if use_kernels:
-        rs = _row_survey(cfg, survey)
+        plan, uidx = _cuda_plan(cfg, survey, das_w)
         src_z = survey.src_z + cfg.npml
         src_x = survey.src_x + cfg.npml
         rxz = survey.src_rxz
     else:
         geoms = survey_to_geoms(survey, cfg.npml, device=device, dtype=dtype)
+        if das_w is not None:
+            w = torch.as_tensor(np.asarray(das_w)).to(device, dtype)
+            geoms = geoms._replace(das_w=w.expand(S, *w.shape))
 
     @torch.no_grad()
     def fwd(lam, mu, rho, stf):
         out = []
         for a, b in _chunks(S, shot_chunk):
             if use_kernels:
-                out.append(cuda_engine.forward_cuda(
-                    cfg, rs, lam, mu, rho, stf[a:b].contiguous(),
-                    src_z[a:b], src_x[a:b], rxz[a:b]))
+                syn = cuda_engine.forward_cuda_plan(
+                    plan, lam, mu, rho, stf[a:b].contiguous(),
+                    src_z[a:b], src_x[a:b], rxz[a:b])
+                if uidx is not None:
+                    syn = _gather_union(syn, uidx[a:b].to(syn.device))
+                out.append(syn)
             else:
                 g = ShotGeom(*(None if t is None else t[a:b]
                                for t in geoms))

@@ -179,8 +179,13 @@ def _record(f: Fields, geom: ShotGeom, cfg: SimConfig):
         # (exx, exz, ezz) (elasticSolver.py:269-276), normalized by dx/dz
         exx = (f.vx[s, rz, rx] - f.vx[s, rz, rx - 1]) / cfg.dx
         ezz = (f.vz[s, rz, rx] - f.vz[s, rz - 1, rx]) / cfg.dz
-        exz = 0.5 * ((f.vx[s, rz + 1, rx] - f.vx[s, rz, rx]) / cfg.dz
-                     + (f.vz[s, rz, rx + 1] - f.vz[s, rz, rx]) / cfg.dx)
+        # a neighbour past the last row or column wraps to the first, as
+        # the index -1 does the other way: both lie outside the update
+        # mask, where vz and vx stay 0 (the kernels read 0 off the grid)
+        exz = 0.5 * ((f.vx[s, (rz + 1) % cfg.nz, rx] - f.vx[s, rz, rx])
+                     / cfg.dz
+                     + (f.vz[s, rz, (rx + 1) % cfg.nx] - f.vz[s, rz, rx])
+                     / cfg.dx)
         w = geom.das_w
         ett = w[..., 0] * exx + w[..., 1] * exz + w[..., 2] * ezz
     else:

@@ -6,7 +6,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sep2023_tpu_torch import models
+from sep2023_tpu_torch import das, models
 from sep2023_tpu_torch.config import SimConfig, ricker
 from sep2023_tpu_torch.medium import Medium, pad_model_np
 from sep2023_tpu_torch.ops import cuda_engine
@@ -18,6 +18,15 @@ ROW_CASES = {
     "small exx": (44, 60, 10, 260, 2, 38, "exx"),
     "small ezz": (44, 60, 10, 260, 2, 38, "ezz"),
     "reference shape nt=301": (101, 201, 32, 301, 19, 40, "exx"),
+}
+
+# fiber_problem arguments of the point-receiver cases that chip_smoke.py
+# and tests/test_torch_cuda.py both run: (das_channel, spacing, dt, f0).
+# The receivers of each are built in `_fiber_receivers`.
+FIBER_CASES = {
+    "arc weighted": ("weighted", 10.0, 0.001, 15.0),
+    "column ezz": ("ezz", 20.0, 0.002, 10.0),
+    "duplicate points exx": ("exx", 20.0, 0.002, 10.0),
 }
 
 # Kernel vs plain, float32 both.  Forward data: per channel, relative to the
@@ -40,34 +49,74 @@ DOT_TOL = 5e-5
 RECON_RATIO = 10.0
 
 
-def row_problem(nz, nx, npml, nt, n_shots, rec_z, das_channel="exx", *,
-                device):
-    """Anomaly model on an nz x nx physical grid, shots along z=1, one
-    receiver row at rec_z (physical grid), float32: (cfg, rs, args) with
-    args the padded-grid inputs of forward_cuda/forward_plain after rs."""
-    cfg = SimConfig(nz=nz + 2 * npml, nx=nx + 2 * npml, dz=20.0, dx=20.0,
-                    nt=nt, dt=0.002, f0=10.0, npml=npml,
-                    das_channel=das_channel)
+def _problem(nz, nx, npml, nt, n_shots, das_channel, dh, dt, f0, device):
+    """Anomaly model on an nz x nx physical grid, shots along z=1, float32:
+    (cfg, args) with args the padded-grid inputs of
+    forward_cuda_plan/forward_plain after the plan or the survey."""
+    cfg = SimConfig(nz=nz + 2 * npml, nx=nx + 2 * npml, dz=dh, dx=dh,
+                    nt=nt, dt=dt, f0=f0, npml=npml, das_channel=das_channel)
     vp, vs, rho = models.anomaly_vp_vs_rho(nz, nx)
     t = lambda a: torch.as_tensor(pad_model_np(a, npml), device=device
                                   ).to(torch.float32)
     lam, mu, rho = Medium(t(vp), t(vs), t(rho)).to_lame()
-    stf = torch.as_tensor(ricker(10.0, nt, 0.002), device=device
+    stf = torch.as_tensor(ricker(f0, nt, dt), device=device
                           ).to(torch.float32).expand(n_shots, nt).contiguous()
     src_x = np.linspace(10, nx - 10, n_shots).astype(int) + npml
-    rs = cuda_engine.RowSurvey(rec_z + npml, 10 + npml, nx - 20)
-    return cfg, rs, (lam.contiguous(), mu.contiguous(), rho.contiguous(),
-                     stf, np.full(n_shots, 1 + npml), src_x,
-                     np.ones(n_shots))
+    return cfg, (lam.contiguous(), mu.contiguous(), rho.contiguous(), stf,
+                 np.full(n_shots, 1 + npml), src_x, np.ones(n_shots))
+
+
+def row_problem(nz, nx, npml, nt, n_shots, rec_z, das_channel="exx", *,
+                device):
+    """`_problem` at 20 m, 2 ms, 10 Hz with one receiver row at rec_z
+    (physical grid): (cfg, rs, args)."""
+    cfg, args = _problem(nz, nx, npml, nt, n_shots, das_channel, 20.0, 0.002,
+                         10.0, device)
+    return cfg, cuda_engine.RowSurvey(rec_z + npml, 10 + npml, nx - 20), args
+
+
+def _fiber_receivers(name, dh):
+    """Physical-grid (rec_z, rec_x, das_w or None) of a FIBER_CASES case."""
+    if name == "arc weighted":
+        # two arc cables of 21 points 20 m apart: neighbouring points share
+        # cells, and the second cable's samples overlap the first's
+        cables = [das.arc_fiber(80.0, 2.0 / np.pi, center=(cx, 200.0, 0.0))
+                  for cx in (260.0, 280.0)]
+        parts = [das.cable_to_receivers(c, dh, dh) for c in cables]
+        return tuple(np.concatenate(p) for p in zip(*parts))
+    if name == "column ezz":
+        return np.arange(8, 34), np.full(26, 48), None
+    if name == "duplicate points exx":
+        # a row spread that visits its last cell 4 more times and a second
+        # row below it (the JAX package's duplicate-lane cables)
+        rec_z = np.array([30] * 16 + [31] * 6)
+        rec_x = np.array(list(range(14, 26)) + [25] * 4
+                         + list(range(18, 24)))
+        return rec_z, rec_x, None
+    raise KeyError(name)
+
+
+def fiber_problem(name, *, device):
+    """A FIBER_CASES case on the 44x60 grid (npml 10, nt=260, 2 shots):
+    (cfg, FiberSurvey, args)."""
+    das_channel, dh, dt, f0 = FIBER_CASES[name]
+    npml = 10
+    cfg, args = _problem(44, 60, npml, 260, 2, das_channel, dh, dt, f0,
+                         device)
+    rec_z, rec_x, das_w = _fiber_receivers(name, dh)
+    return cfg, cuda_engine.make_fiber_survey(rec_z + npml, rec_x + npml,
+                                              das_w), args
 
 
 def perturbed_cotangent(cfg, rs, args, syn):
     """The data cotangent of the default L2 misfit on ett (0.5 sum((obs -
     syn)^2), sample 0 zeroed: -(obs - syn) on ett) against the data of the
-    model with lam raised by 3% (forward_cuda on the tensors' device)."""
+    model with lam raised by 3% (forward_cuda_plan on the tensors'
+    device)."""
     lam, mu, rho, stf, src_z, src_x, rxz = args
-    obs = cuda_engine.forward_cuda(cfg, rs, (lam * 1.03).contiguous(), mu,
-                                   rho, stf, src_z, src_x, rxz)
+    obs = cuda_engine.forward_cuda_plan(
+        cuda_engine.plan_for(cfg, rs), (lam * 1.03).contiguous(), mu, rho,
+        stf, src_z, src_x, rxz)
     d = torch.zeros_like(syn)
     d[:, 3] = -residual(obs, syn)[:, 3]
     return d
@@ -109,9 +158,9 @@ def grad_errors(out, ref, cfg: SimConfig):
 
 
 def adjoint_gap(cfg, rs, args, seed=7):
-    """<d, J s> against <J^T d, s> through cuda_engine.propagate_cuda, with
-    J the (linear) map from the source wavelets to the data and s, d random
-    from `seed`: returns (lhs, rhs, |lhs - rhs| / |lhs|)."""
+    """<d, J s> against <J^T d, s> through cuda_engine.propagate_cuda_plan,
+    with J the (linear) map from the source wavelets to the data and s, d
+    random from `seed`: returns (lhs, rhs, |lhs - rhs| / |lhs|)."""
     lam, mu, rho, stf, src_z, src_x, rxz = args
     rng = np.random.default_rng(seed)
     dev = lam.device
@@ -119,8 +168,8 @@ def adjoint_gap(cfg, rs, args, seed=7):
                         ).to(torch.float32).requires_grad_()
     d = torch.as_tensor(rng.standard_normal(
         (stf.shape[0], 4, rs.n_rec, cfg.nt)), device=dev).to(torch.float32)
-    data = cuda_engine.propagate_cuda(cfg, rs, lam, mu, rho, s, src_z,
-                                      src_x, rxz)
+    data = cuda_engine.propagate_cuda_plan(
+        cuda_engine.plan_for(cfg, rs), lam, mu, rho, s, src_z, src_x, rxz)
     lhs = float((d.double() * data.detach().double()).sum())
     (g,) = torch.autograd.grad(data, s, d)
     rhs = float((g.double() * s.detach().double()).sum())

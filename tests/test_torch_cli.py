@@ -76,16 +76,19 @@ def model():
 
 @pytest.mark.parametrize("layout", ["row", "two_rows"])
 def test_apply_forward_matches_jax(model, layout):
-    """A row survey runs forward_cuda (its plain version on the CPU); any
-    other layout runs the plain propagator."""
+    """A row survey plans as a RowSurvey, a two-row spread as point
+    receivers; both run the engine (its plain versions on the CPU)."""
     rec_z = np.full(20, 16) if layout == "row" else np.repeat([16, 18], 10)
     sv = dict(src_z=np.array([2, 2]), src_x=np.array([12, 40]), rec_z=rec_z,
               rec_x=np.arange(14, 34))
     ref = japi.ElasticPropagator(model, Survey(**sv)).apply_forward()
     prop = tapi.ElasticPropagator(tapi.Model(**model.__dict__),
                                   tcfg.Survey(**sv), device="cpu")
-    assert (prop.rs is None) == (layout != "row")
+    assert isinstance(prop.rs, cuda_engine.RowSurvey if layout == "row"
+                      else cuda_engine.FiberSurvey)
+    calls = cuda_engine.PLAIN_CALLS["forward_plain"]
     out = prop.apply_forward()
+    assert cuda_engine.PLAIN_CALLS["forward_plain"] == calls + 1
     assert out.shape == ref.shape == (2, 4, 20, 160)
     assert np.abs(ref[:, 3]).max() > 1e-3
     for c in range(4):
@@ -96,26 +99,39 @@ def test_apply_forward_matches_jax(model, layout):
     assert np.isfinite(over).all() and not np.allclose(over, out)
 
 
-@pytest.mark.parametrize("case,match", [
-    ("two_rows", "K1-fiber"),
-    ("ragged", "K1-fiber"),
-    ("f64", "float32"),
+@pytest.mark.parametrize("case,exc,match", [
+    ("two_rows", RuntimeError, "simulated"),
+    ("ragged", RuntimeError, "simulated"),
+    ("f64", NotImplementedError, "float32"),
 ])
-def test_apply_forward_off_cpu_raises(model, monkeypatch, case, match):
-    """Off the CPU, what the kernel cannot take raises: it never runs the
-    plain propagator on the device instead."""
+def test_apply_forward_off_cpu_raises(model, monkeypatch, case, exc, match):
+    """Off the CPU a two-row and a ragged survey plan as point receivers
+    and reach the kernel build (made to fail here); float64 raises.  None
+    runs the plain propagator on the device instead."""
+    from sep2023_tpu_torch import parallel, propagator
+    from sep2023_tpu_torch.ops import _build
+
+    def broken_build():
+        raise RuntimeError("nvcc failed (simulated)")
+
     def no_plain(*a, **k):
         raise AssertionError("ElasticPropagator ran the plain propagator")
 
-    monkeypatch.setattr(tapi.propagator, "propagate_shots", no_plain)
+    monkeypatch.setattr(_build, "_LIB", None)
+    monkeypatch.setattr(_build, "build", broken_build)
+    monkeypatch.setattr(propagator, "propagate_shots", no_plain)
     sv = dict(src_z=np.array([2, 2]), src_x=np.array([12, 40]),
               rec_z=np.full(20, 16), rec_x=np.arange(14, 34))
     if case == "two_rows":
         sv["rec_z"] = np.repeat([16, 18], 10)
     elif case == "ragged":
-        sv["rec_z"] = np.full((2, 20), 16)
+        sv["rec_z"] = np.stack([np.full(20, 16), np.full(20, 18)])
         sv["rec_x"] = np.stack([np.arange(14, 34), np.arange(15, 35)])
     dtype = torch.float64 if case == "f64" else torch.float32
-    with pytest.raises(NotImplementedError, match=match):
-        tapi.ElasticPropagator(tapi.Model(**model.__dict__),
-                               tcfg.Survey(**sv), device="meta", dtype=dtype)
+    with pytest.raises(exc, match=match):
+        prop = tapi.ElasticPropagator(tapi.Model(**model.__dict__),
+                                      tcfg.Survey(**sv), device="meta",
+                                      dtype=dtype)
+        assert isinstance(prop.rs, cuda_engine.FiberSurvey)
+        assert parallel._cuda_plan(prop.cfg, prop.survey)[0].rs == prop.rs
+        prop.apply_forward()

@@ -3,8 +3,10 @@ the forward (2e-5 of each channel's max), the forward with boundary strips
 (data, strips and final fields to 2e-5), the boundary-saving adjoint
 (5e-4 of each gradient's max, the same bits on a second run), the adjoint
 dot product (5e-5) and the reconstruction (at most 10x the plain
-residual).  These mirror phases 3 and 7-10 of chip_smoke.py; they need a
-CUDA device and nvcc, and skip without a card:
+residual), on receiver rows (ROW_CASES) and on point receivers
+(FIBER_CASES: a weighted arc fiber, a column, duplicate points).  These
+mirror phases 3, 7-10 and 12 of chip_smoke.py; they need a CUDA device and
+nvcc, and skip without a card:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -13,8 +15,9 @@ import pytest
 import torch
 
 from sep2023_tpu_torch.ops import cuda_engine
-from sep2023_tpu_torch.testing import (DOT_TOL, FWD_TOL, GRAD_TOL,
-                                       RECON_RATIO, ROW_CASES, adjoint_gap,
+from sep2023_tpu_torch.testing import (DOT_TOL, FIBER_CASES, FWD_TOL,
+                                       GRAD_TOL, RECON_RATIO, ROW_CASES,
+                                       adjoint_gap, fiber_problem,
                                        grad_errors, perturbed_cotangent,
                                        reconstruction_residual, row_problem,
                                        strip_errors)
@@ -31,7 +34,7 @@ def cuda():
 
 def _compare(cfg, rs, args, tol):
     before = cuda_engine.LAUNCHES
-    out = cuda_engine.forward_cuda(cfg, rs, *args)
+    out = cuda_engine.forward_cuda_plan(cuda_engine.plan_for(cfg, rs), *args)
     torch.cuda.synchronize()
     assert cuda_engine.LAUNCHES - before == 3 * (cfg.nt - 1)
     ref = cuda_engine.forward_plain(cfg, rs, *args)
@@ -61,7 +64,8 @@ def test_kernel_matches_plain_reference_shape(cuda):
 def test_strips_kernel_matches_plain(cuda, case):
     cfg, rs, args = row_problem(*ROW_CASES[case], device=cuda)
     before = (cuda_engine.LAUNCHES, cuda_engine.LAUNCHES_STRIPS)
-    out = cuda_engine.forward_cuda(cfg, rs, *args, save_strips=True)
+    out = cuda_engine.forward_cuda_plan(cuda_engine.plan_for(cfg, rs), *args,
+                                        save_strips=True)
     torch.cuda.synchronize()
     steps = 3 * (cfg.nt - 1)
     assert (cuda_engine.LAUNCHES, cuda_engine.LAUNCHES_STRIPS) == \
@@ -74,13 +78,14 @@ def test_strips_kernel_matches_plain(cuda, case):
 @pytest.mark.parametrize("case", list(ROW_CASES))
 def test_backward_kernel_matches_plain(cuda, case):
     cfg, rs, args = row_problem(*ROW_CASES[case], device=cuda)
-    syn, strips, final = cuda_engine.forward_cuda(cfg, rs, *args,
-                                                  save_strips=True)
+    plan = cuda_engine.plan_for(cfg, rs)
+    syn, strips, final = cuda_engine.forward_cuda_plan(plan, *args,
+                                                       save_strips=True)
     assert float(syn[:, 3].abs().max()) > 1e-3
     res = (*args, final, strips, perturbed_cotangent(cfg, rs, args, syn))
     before = cuda_engine.LAUNCHES_BWD
-    out = cuda_engine.backward_cuda(cfg, rs, *res)
-    again = cuda_engine.backward_cuda(cfg, rs, *res)
+    out = cuda_engine.backward_cuda_plan(plan, *res)
+    again = cuda_engine.backward_cuda_plan(plan, *res)
     torch.cuda.synchronize()
     assert cuda_engine.LAUNCHES_BWD - before == 2 * (2 * (cfg.nt - 1) + 1)
     for a, b in zip(out, again):  # no atomics: the same bits every run
@@ -99,10 +104,53 @@ def test_adjoint_dot_product(cuda, case):
 def test_reconstruction_residual(cuda):
     cfg, rs, args = row_problem(*ROW_CASES["reference shape nt=301"],
                                 device=cuda)
-    data, strips, final = cuda_engine.forward_cuda(cfg, rs, *args,
-                                                   save_strips=True)
-    kern = reconstruction_residual(cfg, cuda_engine.reconstruct_cuda(
-        cfg, rs, *args, final, strips), data)
+    plan = cuda_engine.plan_for(cfg, rs)
+    data, strips, final = cuda_engine.forward_cuda_plan(plan, *args,
+                                                        save_strips=True)
+    kern = reconstruction_residual(cfg, cuda_engine.reconstruct_cuda_plan(
+        plan, *args, final, strips), data)
     plain = reconstruction_residual(cfg, cuda_engine.reconstruct_plain(
         cfg, rs, *args, final, strips), data)
     assert np.isfinite(kern) and kern <= RECON_RATIO * plain, (kern, plain)
+
+
+@pytest.mark.parametrize("case", list(FIBER_CASES))
+def test_fiber_forward_matches_plain(cuda, case):
+    """record_points_kernel: data, strips and final fields, and one point
+    launch a step."""
+    cfg, rs, args = fiber_problem(case, device=cuda)
+    before = (cuda_engine.LAUNCHES, cuda_engine.LAUNCHES_FIBER)
+    out = cuda_engine.forward_cuda_plan(cuda_engine.plan_for(cfg, rs), *args,
+                                        save_strips=True)
+    torch.cuda.synchronize()
+    steps = cfg.nt - 1
+    assert (cuda_engine.LAUNCHES, cuda_engine.LAUNCHES_FIBER) == \
+        (before[0] + 3 * steps, before[1] + steps)
+    ref = cuda_engine.forward_plain_strips(cfg, rs, *args)
+    assert float(ref[0][:, 3].abs().max()) > 1e-3
+    d, s, f = strip_errors(out, ref)
+    assert max(d + s + f) < FWD_TOL, (d, s, f)
+
+
+@pytest.mark.parametrize("case", list(FIBER_CASES))
+def test_fiber_backward_matches_plain(cuda, case):
+    """inject_points_kernel inside the backward: gradients, the same bits on
+    a second run, one injection launch a step, and the adjoint identity."""
+    cfg, rs, args = fiber_problem(case, device=cuda)
+    plan = cuda_engine.plan_for(cfg, rs)
+    syn, strips, final = cuda_engine.forward_cuda_plan(plan, *args,
+                                                       save_strips=True)
+    res = (*args, final, strips, perturbed_cotangent(cfg, rs, args, syn))
+    before = (cuda_engine.LAUNCHES_BWD, cuda_engine.LAUNCHES_BWD_FIBER)
+    out = cuda_engine.backward_cuda_plan(plan, *res)
+    again = cuda_engine.backward_cuda_plan(plan, *res)
+    torch.cuda.synchronize()
+    steps = cfg.nt - 1
+    assert (cuda_engine.LAUNCHES_BWD, cuda_engine.LAUNCHES_BWD_FIBER) == \
+        (before[0] + 2 * (3 * steps + 1), before[1] + 2 * steps)
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+    err = grad_errors(out, cuda_engine.backward_plain(cfg, rs, *res), cfg)
+    assert max(err) < GRAD_TOL, err
+    _, _, gap = adjoint_gap(cfg, rs, args)
+    assert gap <= DOT_TOL

@@ -7,9 +7,9 @@
 * A central finite difference, the adjoint dot product and the
   reconstruction back to t=0, as the JAX package's tests/test_gradient.py
   and tests/test_reconstruction.py hold its engine.
-* The kernels' plain versions (forward_cuda / backward_cuda on CPU tensors,
-  so forward_plain_strips / backward_plain) against the Pallas engine's
-  propagate_pallas gradients in interpret mode, float32: 5e-4 of each
+* The kernels' plain versions (forward_cuda_plan / backward_cuda_plan on CPU
+  tensors, so forward_plain_strips / backward_plain) against the Pallas
+  engine's propagate_pallas gradients in interpret mode, float32: 5e-4 of each
   gradient's max, the bound of the JAX package's own Pallas-vs-XLA test
   (tests/test_pallas_engine.py:166).
 
@@ -191,9 +191,10 @@ def test_reconstruction_returns_to_zero_f64():
 
 @pytest.mark.parametrize("das_channel", ["exx", "ezz"])
 def test_plain_strips_and_backward_match_pallas(das_channel):
-    """forward_cuda(save_strips=True) and backward_cuda on CPU tensors (their
-    plain versions) against propagate_pallas in interpret mode, float32;
-    nt=141 leaves a partial final strip chunk in the Pallas engine."""
+    """forward_cuda_plan(save_strips=True) and backward_cuda_plan on CPU
+    tensors (their plain versions) against propagate_pallas in interpret
+    mode, float32; nt=141 leaves a partial final strip chunk in the Pallas
+    engine."""
     jcfg, cfg, mats, stf, survey = _problem(10, 40, 56, 141, das_channel)
     f32 = np.float32
     lam, mu, rho = (jnp.asarray(a, jnp.float32) for a in mats)
@@ -217,13 +218,14 @@ def test_plain_strips_and_backward_match_pallas(das_channel):
     inputs = (t(mats[0]), t(mats[1]), t(mats[2]), t(stf), sz, sx, rz)
     before = (cuda_engine.LAUNCHES, cuda_engine.LAUNCHES_BWD,
               dict(cuda_engine.PLAIN_CALLS))
-    data, strips, final = cuda_engine.forward_cuda(cfg, trs, *inputs,
-                                                   save_strips=True)
+    plan = cuda_engine.plan_for(cfg, trs)
+    data, strips, final = cuda_engine.forward_cuda_plan(plan, *inputs,
+                                                        save_strips=True)
     assert strips.shape == (2, 140, 5, propagator.strip_len(cfg))
     assert final.shape == (5, 2, cfg.nz, cfg.nx)
     d = torch.zeros_like(data)
     d[:, 3] = -tmf.residual(torch.from_numpy(np.array(obs)), data)[:, 3]
-    g = cuda_engine.backward_cuda(cfg, trs, *inputs, final, strips, d)
+    g = cuda_engine.backward_cuda_plan(plan, *inputs, final, strips, d)
     # CPU tensors take the plain versions and launch nothing
     assert (cuda_engine.LAUNCHES, cuda_engine.LAUNCHES_BWD) == before[:2]
     calls = cuda_engine.PLAIN_CALLS
@@ -240,21 +242,21 @@ def test_plain_strips_and_backward_match_pallas(das_channel):
 
 
 def test_propagate_cuda_on_cpu_is_the_plain_adjoint():
-    """propagate_cuda's gradient on CPU tensors is backward_plain's, which
+    """propagate_cuda_plan's gradient on CPU tensors is backward_plain's, which
     is propagator.propagate_shots' on the same row survey."""
     _, cfg, mats, stf, survey = _problem(8, 24, 36, 90)
     f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))
     sz, sx, rz = survey.src_z + 8, survey.src_x + 8, survey.src_rxz
     rs = cuda_engine.check_row_survey(survey.rec_z + 8, survey.rec_x + 8)
-    obs = cuda_engine.forward_cuda(cfg, rs, f32(mats[0]) * 1.03,
-                                   f32(mats[1]), f32(mats[2]), f32(stf),
-                                   sz, sx, rz)
+    plan = cuda_engine.plan_for(cfg, rs)
+    obs = cuda_engine.forward_cuda_plan(plan, f32(mats[0]) * 1.03,
+                                        f32(mats[1]), f32(mats[2]), f32(stf),
+                                        sz, sx, rz)
     ps = [f32(a).requires_grad_() for a in (*mats, stf)]
-    loss = tmf.l2_misfit(obs, cuda_engine.propagate_cuda(cfg, rs, *ps, sz,
-                                                         sx, rz))
+    loss = tmf.l2_misfit(obs, cuda_engine.propagate_cuda_plan(plan, *ps, sz,
+                                                              sx, rz))
     g = torch.autograd.grad(loss, ps)
-    geoms = cuda_engine._row_geoms(cfg, rs, 2, sz, sx, rz, "cpu",
-                                   torch.float32)
+    geoms = cuda_engine._geoms(cfg, rs, sz, sx, rz, "cpu", torch.float32)
     qs = [f32(a).requires_grad_() for a in (*mats, stf)]
     loss_p = tmf.l2_misfit(obs, propagator.propagate_shots(cfg, *qs, geoms))
     g_p = torch.autograd.grad(loss_p, qs)
@@ -265,10 +267,36 @@ def test_propagate_cuda_on_cpu_is_the_plain_adjoint():
 
 @pytest.mark.parametrize("shape", [(165, 265), (265, 385), (465, 640),
                                    (528, 704), (560, 720), (814, 2064)])
-def test_fused_range_matches_jax(shape):
-    """The grids where the port's kernels take a gradient on the card are
-    those where the JAX package runs its fused pair (grad_vmem_fits)."""
-    kw = dict(nz=shape[0], nx=shape[1], dz=10.0, dx=10.0, nt=2001,
-              dt=0.001, f0=10.0, npml=32)
-    assert cuda_engine.in_fused_range(tcfg.SimConfig(**kw)) == \
-        pe.grad_vmem_fits(st.SimConfig(**kw))
+def test_fused_range_matches_jax(shape, monkeypatch):
+    """The JAX package's fused range (grad_vmem_fits: 165x265 to 528x704
+    inside, 560x720 and 814x2064 past it, its streamed pair's grids) gates
+    nothing in the port: at every one of these grids a gradient through
+    propagate_cuda_plan on a device that is not the CPU reaches the kernel
+    wrapper's build (made to fail here) and no plain version."""
+    from sep2023_tpu_torch.ops import _build
+
+    def broken_build():
+        raise RuntimeError("nvcc failed (simulated)")
+
+    def no_plain(*a, **k):
+        raise AssertionError("a CUDA entry point ran a plain version")
+
+    monkeypatch.setattr(_build, "_LIB", None)
+    monkeypatch.setattr(_build, "build", broken_build)
+    for name in ("forward_plain", "forward_plain_strips", "backward_plain"):
+        monkeypatch.setattr(cuda_engine, name, no_plain)
+    nz, nx = shape
+    kw = dict(nz=nz, nx=nx, dz=10.0, dx=10.0, nt=2001, dt=0.001, f0=10.0,
+              npml=32)
+    assert pe.grad_vmem_fits(st.SimConfig(**kw)) == (nz < 560)
+    cfg = tcfg.SimConfig(**kw)
+    plan = cuda_engine.plan_fast_path(cfg, np.full(nx - 84, nz - 44),
+                                      np.arange(42, nx - 42))
+    assert plan.rs == cuda_engine.RowSurvey(nz - 44, 42, nx - 84)
+    meta = lambda *s_: torch.zeros(s_, device="meta").requires_grad_()
+    before = (cuda_engine.LAUNCHES, cuda_engine.LAUNCHES_BWD)
+    with pytest.raises(RuntimeError, match="simulated"):
+        cuda_engine.propagate_cuda_plan(
+            plan, meta(nz, nx), meta(nz, nx), meta(nz, nx), meta(1, 2001),
+            np.array([33]), np.array([nx // 2]), np.ones(1))
+    assert (cuda_engine.LAUNCHES, cuda_engine.LAUNCHES_BWD) == before

@@ -159,8 +159,13 @@ def test_auto_shot_chunk_port_layout():
     per = parallel.strip_bytes_per_shot(cfg)
     assert per == 1500 * 5 * 2 * 5 * (165 + 265) * 4 == 129_000_000
     assert parallel.strip_bytes_per_shot(cfg, itemsize=8) == 2 * per
-    assert parallel.auto_shot_chunk(cfg, 19, budget_bytes=19 * per) == 0
-    assert parallel.auto_shot_chunk(cfg, 19, budget_bytes=5 * per + 1) == 5
+    # a chunk is sized by the strips and the 44 state planes a shot
+    state = parallel.state_bytes_per_shot(cfg)
+    assert state == 44 * 165 * 265 * 4
+    both = per + state
+    assert parallel.auto_shot_chunk(cfg, 19, budget_bytes=19 * both) == 0
+    assert parallel.auto_shot_chunk(cfg, 19, budget_bytes=19 * per) == 17
+    assert parallel.auto_shot_chunk(cfg, 19, budget_bytes=5 * both + 1) == 5
     assert parallel.auto_shot_chunk(cfg, 19, budget_bytes=per // 2) == 1
     assert parallel.hbm_budget_bytes("cpu") == parallel.FALLBACK_BUDGET_BYTES
     assert parallel.auto_shot_chunk(cfg, 19, device="cpu") == 0  # 2.45 GB

@@ -3,13 +3,15 @@
 * Importing sep2023_tpu_torch (cli, api, the CUDA engine, the invert path's
   modules) loads neither jax nor sep2023_tpu: the machine with the card has
   no JAX.
-* forward_cuda, backward_cuda, reconstruct_cuda, propagate_cuda,
-  make_cuda_misfit, ElasticPropagator.apply_gradient and `cli invert` on a
-  device that is not the CPU build and launch the kernels or raise; they
-  never run the plain versions instead.
+* forward_cuda_plan, backward_cuda_plan, reconstruct_cuda_plan,
+  propagate_cuda_plan, make_cuda_misfit, ElasticPropagator.apply_gradient
+  and `cli invert` on a device that is not the CPU build and launch the
+  kernels or raise; they never run the plain versions instead.
 * The wrappers reject what the kernels do not take before any pointer is
-  passed, and the backward kernel has no atomics (its gradient is the same
-  from run to run).
+  passed, and the kernels have no atomics (the gradient is the same from
+  run to run).
+* No grid size and no plannable survey raises on the card: multi-row
+  spreads and the 560x720 and 814x2064 grids reach the kernel wrapper.
 """
 import re
 import subprocess
@@ -29,6 +31,7 @@ REPO = Path(__file__).resolve().parents[1]
 CFG = SimConfig(nz=24, nx=30, dz=20.0, dx=20.0, nt=12, dt=0.002, f0=10.0,
                 npml=4)
 RS = cuda_engine.RowSurvey(rec_row=15, rec_x0=5, n_rec=10)
+PLAN = cuda_engine.plan_for(CFG, RS)
 
 
 def _inputs(device="cpu", dtype=torch.float32, S=2):
@@ -42,6 +45,9 @@ def _inputs(device="cpu", dtype=torch.float32, S=2):
 def test_import_loads_no_jax():
     code = (
         "import sys\n"
+        "sys.path.insert(0, 'examples')\n"
+        "import das_fwi_torch\n"
+        "import sep2023_tpu_torch.analytic, sep2023_tpu_torch.das\n"
         "import sep2023_tpu_torch, sep2023_tpu_torch.cli, "
         "sep2023_tpu_torch.api, sep2023_tpu_torch.ops.cuda_engine, "
         "sep2023_tpu_torch.convert, sep2023_tpu_torch.io, "
@@ -63,14 +69,14 @@ def test_forward_cuda_raises_when_build_fails(monkeypatch):
         raise RuntimeError("nvcc failed (simulated)")
 
     def no_plain(*a, **k):
-        raise AssertionError("forward_cuda fell back to the plain version")
+        raise AssertionError("the forward fell back to the plain version")
 
     monkeypatch.setattr(_build, "_LIB", None)  # as in a fresh process
     monkeypatch.setattr(_build, "build", broken_build)
     monkeypatch.setattr(cuda_engine, "forward_plain", no_plain)
     before = cuda_engine.LAUNCHES
     with pytest.raises(RuntimeError, match="simulated"):
-        cuda_engine.forward_cuda(CFG, RS, *_inputs(device="meta"))
+        cuda_engine.forward_cuda_plan(PLAN, *_inputs(device="meta"))
     assert cuda_engine.LAUNCHES == before
 
 
@@ -89,8 +95,10 @@ def test_library_path_keyed_by_sources(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("case,exc,match", [
     ("f64", TypeError, "float32"),
-    ("weighted", NotImplementedError, "K1-fiber"),
-    ("fiber", NotImplementedError, "RowSurvey"),
+    ("weighted", ValueError, "FiberSurvey with weights"),
+    ("fiber", TypeError, "RowSurvey or a FiberSurvey"),
+    ("fiber_no_weights", ValueError, "weights"),
+    ("fiber_corner", ValueError, "recordable range"),
     ("src_out", ValueError, "src_z outside"),
     ("rec_edge", ValueError, "does not fit"),
     ("stf_shape", ValueError, "stf must be"),
@@ -104,6 +112,11 @@ def test_forward_cuda_rejects(case, exc, match):
         cfg = SimConfig(**{**CFG.__dict__, "das_channel": "weighted"})
     elif case == "fiber":
         rs = None
+    elif case == "fiber_no_weights":
+        cfg = SimConfig(**{**CFG.__dict__, "das_channel": "weighted"})
+        rs = cuda_engine.make_fiber_survey([15, 16], [5, 6])
+    elif case == "fiber_corner":
+        rs = cuda_engine.make_fiber_survey([0, 15], [0, 6])
     elif case == "src_out":
         sz = np.array([2, CFG.nz])
     elif case == "rec_edge":
@@ -113,7 +126,8 @@ def test_forward_cuda_rejects(case, exc, match):
     elif case == "noncontig":
         lam = torch.full((CFG.nx, CFG.nz), 6e9).t()
     with pytest.raises(exc, match=match):
-        cuda_engine.forward_cuda(cfg, rs, lam, mu, rho, stf, sz, sx, rxz)
+        cuda_engine.forward_cuda_plan(cuda_engine.plan_for(cfg, rs), lam, mu,
+                                      rho, stf, sz, sx, rxz)
 
 
 def test_check_row_survey():
@@ -152,14 +166,14 @@ def test_backward_entries_raise_when_build_fails(monkeypatch):
     d = meta(S, 4, RS.n_rec, CFG.nt)
     before = (cuda_engine.LAUNCHES, cuda_engine.LAUNCHES_BWD)
     with pytest.raises(RuntimeError, match="simulated"):
-        cuda_engine.forward_cuda(CFG, RS, lam, mu, rho, stf, sz, sx, rxz,
-                                 save_strips=True)
+        cuda_engine.forward_cuda_plan(PLAN, lam, mu, rho, stf, sz, sx, rxz,
+                                      save_strips=True)
     with pytest.raises(RuntimeError, match="simulated"):
-        cuda_engine.backward_cuda(CFG, RS, lam, mu, rho, stf, sz, sx, rxz,
-                                  final, strips, d)
+        cuda_engine.backward_cuda_plan(PLAN, lam, mu, rho, stf, sz, sx, rxz,
+                                       final, strips, d)
     with pytest.raises(RuntimeError, match="simulated"):
-        cuda_engine.reconstruct_cuda(CFG, RS, lam, mu, rho, stf, sz, sx, rxz,
-                                     final, strips)
+        cuda_engine.reconstruct_cuda_plan(PLAN, lam, mu, rho, stf, sz, sx,
+                                          rxz, final, strips)
     assert (cuda_engine.LAUNCHES, cuda_engine.LAUNCHES_BWD) == before
 
 
@@ -170,14 +184,14 @@ def test_backward_cuda_rejects_bad_residuals():
                          cuda_engine.propagator.strip_len(CFG))
     d = torch.zeros(2, 4, RS.n_rec, CFG.nt)
     with pytest.raises(ValueError, match="strips must be"):
-        cuda_engine.backward_cuda(CFG, RS, lam, mu, rho, stf, sz, sx, rxz,
-                                  final, strips[:, :-1].contiguous(), d)
+        cuda_engine.backward_cuda_plan(PLAN, lam, mu, rho, stf, sz, sx, rxz,
+                                       final, strips[:, :-1].contiguous(), d)
     with pytest.raises(ValueError, match="d_data must be"):
-        cuda_engine.backward_cuda(CFG, RS, lam, mu, rho, stf, sz, sx, rxz,
-                                  final, strips, d[..., :-1].contiguous())
+        cuda_engine.backward_cuda_plan(PLAN, lam, mu, rho, stf, sz, sx, rxz,
+                                       final, strips, d[..., :-1].contiguous())
     with pytest.raises(TypeError, match="float32"):
-        cuda_engine.backward_cuda(CFG, RS, lam, mu, rho, stf, sz, sx, rxz,
-                                  final.double(), strips, d)
+        cuda_engine.backward_cuda_plan(PLAN, lam, mu, rho, stf, sz, sx, rxz,
+                                       final.double(), strips, d)
 
 
 # A row survey on CFG's grid (padded rec_z 15) and a two-row one.
@@ -192,14 +206,15 @@ SURVEYS = {
 @pytest.mark.parametrize("entry", ["propagate_cuda", "make_cuda_misfit",
                                    "apply_gradient"])
 @pytest.mark.parametrize("case,exc,match", [
-    ("two_rows", NotImplementedError, "K1-fiber"),
+    ("two_rows", RuntimeError, "simulated"),
     ("f64", NotImplementedError, "float32"),
     ("build", RuntimeError, "simulated"),
 ])
 def test_gradient_entries_off_cpu_raise(monkeypatch, entry, case, exc,
                                         match):
     """On a device that is not the CPU, the invert path's entry points run
-    the kernels or raise: never the plain propagator."""
+    the kernels or raise: never the plain propagator.  A two-row spread
+    plans as point receivers and reaches the kernel build like a row."""
     _broken_build(monkeypatch)
     sv = Survey(**SURVEYS["two_rows" if case == "two_rows" else "row"])
     dtype = torch.float64 if case == "f64" else torch.float32
@@ -208,11 +223,13 @@ def test_gradient_entries_off_cpu_raise(monkeypatch, entry, case, exc,
     cfg = CFG
     with pytest.raises(exc, match=match):
         if entry == "propagate_cuda":
-            rs = cuda_engine.check_row_survey(sv.rec_z + cfg.npml,
-                                              sv.rec_x + cfg.npml)
-            out = cuda_engine.propagate_cuda(
-                cfg, rs, *params, sv.src_z + cfg.npml, sv.src_x + cfg.npml,
-                sv.src_rxz)
+            rs = cuda_engine.plan_fast_path(cfg, sv.rec_z + cfg.npml,
+                                            sv.rec_x + cfg.npml).rs
+            assert isinstance(rs, cuda_engine.FiberSurvey) == \
+                (case == "two_rows")
+            out = cuda_engine.propagate_cuda_plan(
+                cuda_engine.plan_for(cfg, rs), *params,
+                sv.src_z + cfg.npml, sv.src_x + cfg.npml, sv.src_rxz)
             out.sum().backward()
         elif entry == "make_cuda_misfit":
             loss = parallel.make_cuda_misfit(cfg, sv)
@@ -252,31 +269,41 @@ def test_cli_invert_on_cuda_without_a_card_raises(tmp_path, monkeypatch):
 
 
 def test_backward_kernel_has_no_atomics():
-    """Every transpose is a gather: no atomic operation in the code of the
-    backward kernel or the code it shares (comments aside)."""
-    for name in ("elastic_bwd.cu", "elastic_common.cuh"):
+    """Every transpose is a gather, the point receivers' too: no atomic
+    operation in the code of any kernel source (comments aside)."""
+    names = sorted(p.name for p in (REPO / "sep2023_tpu_torch" / "csrc")
+                   .iterdir())
+    assert names == ["elastic_bwd.cu", "elastic_common.cuh",
+                     "elastic_fwd.cu"]
+    for name in names:
         src = (REPO / "sep2023_tpu_torch" / "csrc" / name).read_text()
         code = re.sub(r"//[^\n]*", "", src)
         assert "__global__" in code or name.endswith(".cuh")
         assert not re.search(r"atomic", code, re.IGNORECASE), name
 
 
-def test_streamed_scale_gradient_raises_on_the_card(monkeypatch):
-    """Past the JAX package's fused range (560x720 padded) a gradient on a
-    device that is not the CPU raises, naming K3/K4, before any launch."""
+@pytest.mark.parametrize("nz,nx", [(560, 720), (814, 2064)])
+def test_streamed_scale_gradient_raises_on_the_card(monkeypatch, nz, nx):
+    """Past the JAX package's fused range (560x720 and 814x2064 padded, its
+    streamed pair's grids) no size gate is left: a gradient on a device
+    that is not the CPU reaches the kernel build, and raises only because
+    the build here fails; it never runs a plain version."""
     _broken_build(monkeypatch)
-    cfg = SimConfig(nz=560, nx=720, dz=10.0, dx=10.0, nt=12, dt=0.001,
+    cfg = SimConfig(nz=nz, nx=nx, dz=10.0, dx=10.0, nt=12, dt=0.001,
                     f0=10.0, npml=32)
-    rs = cuda_engine.RowSurvey(rec_row=500, rec_x0=40, n_rec=600)
+    rs = cuda_engine.RowSurvey(rec_row=nz - 44, rec_x0=42, n_rec=nx - 84)
     meta = lambda *shape: torch.zeros(shape, device="meta")
-    lam, mu, rho = (meta(560, 720).requires_grad_() for _ in range(3))
+    lam, mu, rho = (meta(nz, nx).requires_grad_() for _ in range(3))
     stf = meta(2, 12).requires_grad_()
     idx = (np.full(2, 33), np.array([100, 600]), np.ones(2))
-    with pytest.raises(NotImplementedError, match="K3/K4"):
-        cuda_engine.propagate_cuda(cfg, rs, lam, mu, rho, stf, *idx)
-    with pytest.raises(NotImplementedError, match="K3/K4"):
-        cuda_engine.backward_cuda(
-            cfg, rs, lam.detach(), mu.detach(), rho.detach(), stf.detach(),
-            *idx, meta(5, 2, 560, 720),
+    assert not hasattr(cuda_engine, "in_fused_range")
+    assert not hasattr(cuda_engine, "check_fused_range")
+    with pytest.raises(RuntimeError, match="simulated"):
+        cuda_engine.propagate_cuda_plan(cuda_engine.plan_for(cfg, rs), lam,
+                                        mu, rho, stf, *idx)
+    with pytest.raises(RuntimeError, match="simulated"):
+        cuda_engine.backward_cuda_plan(
+            cuda_engine.plan_for(cfg, rs), lam.detach(), mu.detach(),
+            rho.detach(), stf.detach(), *idx, meta(5, 2, nz, nx),
             meta(2, 11, 5, cuda_engine.propagator.strip_len(cfg)),
-            meta(2, 4, 600, 12))
+            meta(2, 4, nx - 84, 12))

@@ -3,7 +3,7 @@
 * propagator.propagate_shots (plain PyTorch, float64) against
   sep2023_tpu.propagator.propagate under jax.vmap (XLA, float64): 1e-10 of
   each channel's max.
-* cuda_engine.forward_cuda on CPU tensors (float32, so its plain version)
+* cuda_engine.forward_cuda_plan on CPU tensors (float32, so its plain version)
   against pallas_engine.forward_pallas in interpret mode: 2e-5 of each
   channel's max, the tolerance the JAX package holds between Pallas and XLA.
 
@@ -106,9 +106,9 @@ def test_forward_cuda_cpu_matches_pallas(das_channel):
     assert tuple(trs) == tuple(rs)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, f32))
     before = cuda_engine.LAUNCHES
-    out = cuda_engine.forward_cuda(
-        tcfg_, trs, t(lam), t(mu), t(rho), t(stf), survey.src_z + npml,
-        survey.src_x + npml, survey.src_rxz)
+    out = cuda_engine.forward_cuda_plan(
+        cuda_engine.plan_for(tcfg_, trs), t(lam), t(mu), t(rho), t(stf),
+        survey.src_z + npml, survey.src_x + npml, survey.src_rxz)
     assert cuda_engine.LAUNCHES == before  # the CPU path launches nothing
     assert out.dtype == torch.float32 and out.device.type == "cpu"
     _assert_arrivals(ref)
