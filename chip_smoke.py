@@ -7,11 +7,24 @@ point receivers; the reference workload and the large grids 560x720 and
 the reference workload, `invert` at 560x720, a chunked Marmousi-scale
 gradient at 814x2064, the curved-fiber inversion of
 examples/das_fwi_torch.py), checks the ElasticPropagator API, and prints
-the device-time breakdown of a reference forward, a reference gradient
-and two large-grid gradients (torch.profiler).  The two large main paths
-are also held against the plain versions at their own shapes (nt=2001, the
-main path's survey), and the 54-shot chunk of the 560x720 one, whose strip
-offsets pass 2^32, against the same shots run alone, bit for bit.
+the device-time breakdown of a reference forward, a reference gradient, a
+reference acoustic gradient and two large-grid gradients (torch.profiler).
+The two large main paths are also held against the plain versions at their
+own shapes (nt=2001, the main path's survey), and the 54-shot chunk of the
+560x720 one, whose strip offsets pass 2^32, against the same shots run
+alone, bit for bit.
+
+The acoustic physics the same way: the kernels of csrc/acoustic_fwd.cu and
+csrc/acoustic_bwd.cu (the 3-field forward, with and without strips, the
+boundary-saving adjoint and its imaging variant) against their plain
+versions on AC_CASES, the reference shape and the reference workload
+(phase 17); at the shapes of the JAX package's streamed acoustic pair, one
+shot at 560x720 and 814x2064 and a 112-shot chunk at 560x720 bit for bit
+against single shots (phase 18); and their main paths with exact launch
+counts and no plain call (phase 19): `forward --physics acoustic` at the
+reference workload and at 560x720 with 64 shots, `rtm` at its defaults,
+the acoustic gradient of the JAX package's bench at the reference workload
+and at the two streamed shapes, and `rtm --physics elastic`.
 
     python3 chip_smoke.py
 
@@ -29,6 +42,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -37,15 +51,19 @@ from sep2023_tpu_torch import api, cli, das, models, parallel
 from sep2023_tpu_torch import io as sio
 from sep2023_tpu_torch.config import SimConfig, Survey, ricker
 from sep2023_tpu_torch.medium import Medium, pad_model_np
-from sep2023_tpu_torch.ops import _build, cuda_engine
+from sep2023_tpu_torch.ops import _build, cuda_acoustic, cuda_engine
 from sep2023_tpu_torch.ops import signal as sg
 from sep2023_tpu_torch.ops.misfit import l2_misfit
-from sep2023_tpu_torch.testing import (DOT_TOL, FIBER_CASES, GRAD_TOL,
-                                       RECON_RATIO, ROW_CASES, adjoint_gap,
+from sep2023_tpu_torch.testing import (AC_CASES, AC_INTERIOR, DOT_TOL,
+                                       FIBER_CASES, GRAD_TOL, RECON_RATIO,
+                                       ROW_CASES, ac_perturbed_cotangent,
+                                       ac_problem, ac_row_problem,
+                                       acoustic_args, adjoint_gap,
                                        fiber_problem, grad_errors,
                                        perturbed_cotangent,
                                        reconstruction_residual, row_problem,
                                        strip_errors)
+from sep2023_tpu_torch.testing import max_rel as rel_err
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "examples"))
@@ -68,11 +86,23 @@ TOL_LONG = 1e-4     # nt=1501: FMA contraction and summation order differ,
 #   elastic_bwd.cu: velocity launch 100 (4 transposed stencils and their
 #     sums 24, 4 stencils 20, reconstruction 12, buoyancy cotangents and
 #     gradients 24, 4 CPML adjoints x 5), stress launch 115 (24, 20,
-#     reconstruction 18, elastic cotangents and gradients 33, 20): 215.
+#     reconstruction 18, elastic cotangents and gradients 33, 20): 215;
+#   acoustic_fwd.cu: pressure 24 (2 stencils x 5, 2 CPML derivatives x 5,
+#     increment 3, 1 field add), velocity 26 (10 + 10, increments 4,
+#     2 adds): 50;
+#   acoustic_bwd.cu: velocity launch 56 (2 transposed stencils and their
+#     sums 12, 2 stencils 10, reconstruction 8, buoyancy cotangents and
+#     gradients 16, 2 CPML adjoints x 5), pressure launch 49 (12, 10,
+#     reconstruction 6, cotangent and gradient of lam 11, 10): 105; as the
+#     imaging variant 102 (the 9 of the three gradients give way to the 6 of
+#     the image and the illumination).
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 FWD_OPS_PER_CELL_STEP = 102
 BWD_OPS_PER_CELL_STEP = 215
+AC_FWD_OPS_PER_CELL_STEP = 50
+AC_BWD_OPS_PER_CELL_STEP = 105
+AC_IMG_OPS_PER_CELL_STEP = 102
 
 
 def check(cond, msg):
@@ -105,37 +135,45 @@ def cuda_ms(fn, reps, warm=True):
     return start.elapsed_time(end) / reps
 
 
-COUNTERS = ("LAUNCHES", "LAUNCHES_STRIPS", "LAUNCHES_FIBER", "LAUNCHES_BWD",
-            "LAUNCHES_BWD_FIBER")
+# Every launch counter, by the module that holds it.
+COUNTERS = {"LAUNCHES": cuda_engine, "LAUNCHES_STRIPS": cuda_engine,
+            "LAUNCHES_FIBER": cuda_engine, "LAUNCHES_BWD": cuda_engine,
+            "LAUNCHES_BWD_FIBER": cuda_engine, "LAUNCHES_AC": cuda_acoustic,
+            "LAUNCHES_AC_STRIPS": cuda_acoustic,
+            "LAUNCHES_AC_BWD": cuda_acoustic,
+            "LAUNCHES_AC_IMG": cuda_acoustic}
 
 
 def reset_counts():
     """Set every launch counter and every plain-call count to 0."""
-    for k in COUNTERS:
-        setattr(cuda_engine, k, 0)
+    for k, module in COUNTERS.items():
+        setattr(module, k, 0)
     for k in cuda_engine.PLAIN_CALLS:
         cuda_engine.PLAIN_CALLS[k] = 0
 
 
 def read_counts():
     """(launch counters by name, plain calls by name) since reset_counts."""
-    return ({k: getattr(cuda_engine, k) for k in COUNTERS},
+    return ({k: getattr(module, k) for k, module in COUNTERS.items()},
             dict(cuda_engine.PLAIN_CALLS))
+
+
+def counts_are(got, want):
+    """The launch counters equal `want` (a name missing there must be 0)."""
+    return got == {k: want.get(k, 0) for k in COUNTERS}
 
 
 def check_counts(label, got, want, plain_calls):
     """The launch counters equal `want` (a name missing there must be 0)
     and no plain version ran."""
-    want = {k: want.get(k, 0) for k in COUNTERS}
-    check(got == want, f"{label}: launches {got}, expected {want}")
+    check(counts_are(got, want), f"{label}: launches {got}, expected {want}")
     check(sum(plain_calls.values()) == 0,
           f"{label} called the plain versions: {plain_calls}")
 
 
-def reference_problem(dev, nz=101, nx=201, **grid):
-    """The inputs `forward` and `invert` build for their true model, at
-    their defaults (101x201 + npml 32, nt=1501, 19 shots, 181 receivers at
-    z=95) or at another grid of cli.benchmark_problem."""
+def _reference(dev, nz, nx, grid):
+    """(cfg, RowSurvey, Medium, stf, geoms) of cli.benchmark_problem with
+    the true model of `forward` and `invert`."""
     cfg, survey, geoms, stf = cli.benchmark_problem(nz=nz, nx=nx, **grid,
                                                     device=dev)
     stf = (stf * sg.taper_window(cfg.nt, cfg.dt, ratio=0.001, device=dev)
@@ -143,10 +181,29 @@ def reference_problem(dev, nz=101, nx=201, **grid):
     vp, vs, rho = models.anomaly_vp_vs_rho(nz, nx)
     t = lambda a: torch.as_tensor(pad_model_np(a, cfg.npml), device=dev).to(
         torch.float32)
-    lam, mu, rho = Medium(t(vp), t(vs), t(rho)).to_lame()
     rs = cuda_engine.check_row_survey(survey.rec_z + cfg.npml,
                                       survey.rec_x + cfg.npml)
+    return cfg, rs, Medium(t(vp), t(vs), t(rho)), stf, geoms
+
+
+def reference_problem(dev, nz=101, nx=201, **grid):
+    """The inputs `forward` and `invert` build for their true model, at
+    their defaults (101x201 + npml 32, nt=1501, 19 shots, 181 receivers at
+    z=95) or at another grid of cli.benchmark_problem."""
+    cfg, rs, med, stf, geoms = _reference(dev, nz, nx, grid)
+    lam, mu, rho = med.to_lame()
     return cfg, rs, (lam, mu, rho, stf, geoms.src_z, geoms.src_x, geoms.rxz)
+
+
+def acoustic_reference_problem(dev, nz=101, nx=201, vp=None, **grid):
+    """The inputs `forward --physics acoustic` builds (lam = rho vp^2 of the
+    same true model), or with a constant vp those of the JAX package's
+    bench (bench.py sec_acoustic: lam = rho 2000^2): (cfg, rs, (lam, rho,
+    stf, src_z, src_x))."""
+    cfg, rs, med, stf, geoms = _reference(dev, nz, nx, grid)
+    lam = med.rho * (med.vp if vp is None else vp) ** 2
+    return cfg, rs, (lam.contiguous(), med.rho.contiguous(), stf,
+                     geoms.src_z, geoms.src_x)
 
 
 def phase_environment():
@@ -448,9 +505,9 @@ def _fiber_case(label, cfg, rs, inputs):
     out = cuda_engine.forward_cuda_plan(plan, *inputs, save_strips=True)
     data = cuda_engine.forward_cuda_plan(plan, *inputs)
     counts, _ = read_counts()
-    check(counts == {"LAUNCHES": 6 * steps, "LAUNCHES_STRIPS": 3 * steps,
-                     "LAUNCHES_FIBER": 2 * steps, "LAUNCHES_BWD": 0,
-                     "LAUNCHES_BWD_FIBER": 0},
+    check(counts_are(counts, {"LAUNCHES": 6 * steps,
+                              "LAUNCHES_STRIPS": 3 * steps,
+                              "LAUNCHES_FIBER": 2 * steps}),
           f"{label}: forward launch counters {counts}")
     check(torch.equal(data, out[0]), f"{label}: strip saving changed the data")
     ref = cuda_engine.forward_plain_strips(cfg, rs, *inputs)
@@ -564,75 +621,123 @@ def _timed(fn):
     return out, start.elapsed_time(end)
 
 
-def hold_against_plain(tag, cfg, rs, inputs, tol, silent_samples=20):
+class Engine(NamedTuple):
+    """What hold_against_plain and chunk_against_single_shots need of the
+    elastic or the acoustic pair of kernels.  Inputs are n_model material
+    planes, the wavelets, then the source tables."""
+    kind: str
+    n_model: int          # lam, mu, rho or lam, rho
+    n_fields: int
+    n_state: int          # planes of the forward's state buffer
+    arrival_channel: int  # ett, or the acoustic pr
+    grads: str
+    interior: int         # cells between the PML and the kept gradients
+    acoustic: bool
+    fwd_ops: int
+    bwd_ops: int
+    forward: object
+    backward: object
+    reconstruct: object
+    plain_forward_strips: object
+    plain_backward: object
+    plain_reconstruct: object
+
+
+ELASTIC = Engine(
+    "elastic", 3, 5, cuda_engine.N_STATE_PLANES, 3,
+    "(d_lam, d_mu, d_rho, d_stf)", 0, False, FWD_OPS_PER_CELL_STEP,
+    BWD_OPS_PER_CELL_STEP, cuda_engine.forward_cuda_plan,
+    cuda_engine.backward_cuda_plan, cuda_engine.reconstruct_cuda_plan,
+    cuda_engine.forward_plain_strips, cuda_engine.backward_plain,
+    cuda_engine.reconstruct_plain)
+ACOUSTIC = Engine(
+    "acoustic", 2, 3, cuda_acoustic.N_STATE_PLANES, 0,
+    "(d_lam, d_rho, d_stf)", AC_INTERIOR, True, AC_FWD_OPS_PER_CELL_STEP,
+    AC_BWD_OPS_PER_CELL_STEP, cuda_acoustic.forward_cuda_acoustic_plan,
+    cuda_acoustic.backward_cuda_acoustic_plan,
+    cuda_acoustic.reconstruct_cuda_acoustic_plan,
+    cuda_acoustic.forward_plain_acoustic_strips,
+    cuda_acoustic.backward_plain_acoustic,
+    cuda_acoustic.reconstruct_plain_acoustic)
+
+
+def assumed_bytes(cfg, shots, eng=ELASTIC):
+    """What auto_shot_chunk assumes `shots` shots in flight hold."""
+    return shots * (parallel.strip_bytes_per_shot(cfg, eng.acoustic)
+                    + parallel.state_bytes_per_shot(cfg, eng.acoustic))
+
+
+def hold_against_plain(tag, cfg, rs, inputs, tol, silent_samples=20,
+                       eng=ELASTIC):
     """All the shots of `inputs` through K1-strips and K2 (with point
-    receivers: K1-fiber) against their plain versions: data, strips, final
-    fields (`tol`), gradients (GRAD_TOL), a second backward bitwise, the
+    receivers: K1-fiber; with eng=ACOUSTIC: K5-strips and K6) against their
+    plain versions: data (`tol`), strips and final fields (TOL), gradients
+    (GRAD_TOL), a second backward bitwise, the
     reconstruction residual, CUDA-event times, bounds and peak memory.  The
     cotangent is the data itself (the loss 0.5 sum(syn^2) of bench.py's
     large-grid cells).  The kernels' times are means of 3 runs; each plain
     version runs once, for the comparison, and that run is the one timed.
     Returns the (forward, backward) numbers of the kernels line."""
-    S = inputs[3].shape[0]
+    stf = inputs[eng.n_model]
+    S = stf.shape[0]
     plan = cuda_engine.plan_for(cfg, rs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    out = cuda_engine.forward_cuda_plan(plan, *inputs, save_strips=True)
+    out = eng.forward(plan, *inputs, save_strips=True)
     data, strips, final = out
     d_data = data.clone()
     res = (*inputs, final, strips, d_data)
-    g = cuda_engine.backward_cuda_plan(plan, *res)
+    g = eng.backward(plan, *res)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
-    assumed = S * (parallel.strip_bytes_per_shot(cfg)
-                   + parallel.state_bytes_per_shot(cfg))
-    ett = data[:, 3].abs()
+    assumed = assumed_bytes(cfg, S, eng)
+    ett = data[:, eng.arrival_channel].abs()
     check(float(ett.max()) > 1e-6, f"{tag} no arrivals at the receivers")
     if silent_samples:  # and the receivers are far enough to see it arrive
         check(float(ett[..., :silent_samples].max())
               < 1e-6 * float(ett.max()), f"{tag} arrivals from sample 0")
 
-    ref, fwd_plain = _timed(lambda: cuda_engine.forward_plain_strips(
-        cfg, rs, *inputs))
+    ref, fwd_plain = _timed(lambda: eng.plain_forward_strips(cfg, rs,
+                                                             *inputs))
     d, s, f = strip_errors(out, ref)
-    check(max(d + s + f) < tol, f"{tag} forward vs plain {d} {s} {f}")
+    check(max(d) < tol and max(s + f) < TOL,
+          f"{tag} forward vs plain {d} {s} {f}")
     fwd_abs = max(float((a - b).abs().max()) for a, b in zip(out, ref))
     del ref
-    g_ref, bwd_plain = _timed(lambda: cuda_engine.backward_plain(
-        cfg, rs, *res))
-    err = grad_errors(g, g_ref, cfg)
+    g_ref, bwd_plain = _timed(lambda: eng.plain_backward(cfg, rs, *res))
+    err = grad_errors(g, g_ref, cfg, eng.interior)
     check(all(np.isfinite(err)) and max(err) < GRAD_TOL,
           f"{tag} backward vs plain {err}")
     check(all(float(a.abs().max()) > 0 for a in g_ref), f"{tag} a plain "
           "gradient is zero")
     bwd_abs = max(float((a - b).abs().max()) for a, b in zip(g, g_ref))
-    again = cuda_engine.backward_cuda_plan(plan, *res)
+    again = eng.backward(plan, *res)
     check(all(torch.equal(a, b) for a, b in zip(g, again)),
           f"{tag} a second backward run gave other bits")
-    fwd_bytes = nbytes(*inputs[:4], *out)
-    bwd_bytes = nbytes(*inputs[:4], final, strips, d_data, *g)
+    fwd_bytes = nbytes(*inputs[:eng.n_model + 1], *out)
+    bwd_bytes = nbytes(*inputs[:eng.n_model + 1], final, strips, d_data, *g)
     del again, g_ref
 
-    kern = reconstruction_residual(cfg, cuda_engine.reconstruct_cuda_plan(
+    kern = reconstruction_residual(cfg, eng.reconstruct(
         plan, *inputs, final, strips), data)
-    plain = reconstruction_residual(cfg, cuda_engine.reconstruct_plain(
+    plain = reconstruction_residual(cfg, eng.plain_reconstruct(
         cfg, rs, *inputs, final, strips), data)
     check(np.isfinite(kern) and kern <= RECON_RATIO * plain,
           f"{tag} reconstruction residual {kern} > {RECON_RATIO} x {plain}")
 
-    fwd_ms = cuda_ms(lambda: cuda_engine.forward_cuda_plan(
-        plan, *inputs, save_strips=True), 3)
-    bwd_ms = cuda_ms(lambda: cuda_engine.backward_cuda_plan(plan, *res), 3)
-    fb, fb_by = bound(cfg, S, FWD_OPS_PER_CELL_STEP, fwd_bytes)
-    bb, bb_by = bound(cfg, S, BWD_OPS_PER_CELL_STEP, bwd_bytes)
+    fwd_ms = cuda_ms(lambda: eng.forward(plan, *inputs, save_strips=True), 3)
+    bwd_ms = cuda_ms(lambda: eng.backward(plan, *res), 3)
+    fb, fb_by = bound(cfg, S, eng.fwd_ops, fwd_bytes)
+    bb, bb_by = bound(cfg, S, eng.bwd_ops, bwd_bytes)
     cells = cfg.nz * cfg.nx * (cfg.nt - 1) * S
     print(f"{tag} ({cfg.nz}x{cfg.nx}, nt={cfg.nt}, {S} shot(s), {rs.n_rec} "
-          f"receivers): forward with strips vs plain: max rel err data {d}, "
-          f"strips {max(s)}, final {max(f)} < {tol}; gradients (d_lam, d_mu, "
-          f"d_rho, d_stf) {err} < {GRAD_TOL}, a second backward bitwise "
-          f"equal; reconstruction residual / peak |pr| kernel {kern:.6e}, "
-          f"plain f32 {plain:.6e}; max |ett| {float(ett.max()):.6e}")
+          f"receivers, {eng.kind}): forward with strips vs plain: max rel "
+          f"err data {d} < {tol}, strips {max(s)}, final {max(f)} < {TOL}; "
+          f"gradients {eng.grads} {err} < {GRAD_TOL}, a second backward "
+          f"bitwise equal; reconstruction residual / peak |pr| kernel "
+          f"{kern:.6e}, plain f32 {plain:.6e}; max |"
+          f"{'pr' if eng.acoustic else 'ett'}| {float(ett.max()):.6e}")
     print(f"{tag} CUDA events: forward with strips kernel {fwd_ms:.3f} ms "
           f"(mean of 3, {cells / fwd_ms / 1e6:.2f} GCell/s), plain "
           f"{fwd_plain:.3f} ms (the comparison's run), bound {fb:.3f} ms "
@@ -657,35 +762,33 @@ def phase_large_vs_plain(dev):
         torch.cuda.empty_cache()
 
 
-def _shots(inputs, a, b):
+def _shots(inputs, a, b, eng=ELASTIC):
     """The inputs of shots a..b-1 alone."""
-    return (*inputs[:3], *(t[a:b] for t in inputs[3:]))
+    n = eng.n_model
+    return (*inputs[:n], *(t[a:b] for t in inputs[n:]))
 
 
-def chunk_against_single_shots(tag, cfg, rs, inputs, shots):
+def chunk_against_single_shots(tag, cfg, rs, inputs, shots, eng=ELASTIC):
     """All the shots of `inputs` in one forward with strips and one
     backward (cotangent: the data itself), then each of `shots` alone:
     shots do not interact, so its data, strips, final fields and d_stf must
     have the same bits.  A 32-bit offset into the chunk's strips, state or
     data would move the late shots' values and show here."""
-    S = inputs[3].shape[0]
+    S = inputs[eng.n_model].shape[0]
     plan = cuda_engine.plan_for(cfg, rs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    data, strips, final = cuda_engine.forward_cuda_plan(plan, *inputs,
-                                                        save_strips=True)
-    d_stf = cuda_engine.backward_cuda_plan(plan, *inputs, final, strips,
-                                           data)[3]
+    data, strips, final = eng.forward(plan, *inputs, save_strips=True)
+    d_stf = eng.backward(plan, *inputs, final, strips, data)[-1]
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     check(bool(torch.isfinite(d_stf).all()), f"{tag} d_stf not finite")
     for k in shots:
-        one = _shots(inputs, k, k + 1)
-        d1, s1, f1 = cuda_engine.forward_cuda_plan(plan, *one,
-                                                   save_strips=True)
-        check(float(d1[:, 3].abs().max()) > 1e-6,
+        one = _shots(inputs, k, k + 1, eng)
+        d1, s1, f1 = eng.forward(plan, *one, save_strips=True)
+        check(float(d1[:, eng.arrival_channel].abs().max()) > 1e-6,
               f"{tag} shot {k}: no arrivals at the receivers")
-        g1 = cuda_engine.backward_cuda_plan(plan, *one, f1, s1, d1)[3]
+        g1 = eng.backward(plan, *one, f1, s1, d1)[-1]
         check(float(g1.abs().max()) > 0, f"{tag} shot {k}: d_stf is zero")
         same = {"data": torch.equal(d1[0], data[k]),
                 "strips": torch.equal(s1[0], strips[k]),
@@ -694,9 +797,10 @@ def chunk_against_single_shots(tag, cfg, rs, inputs, shots):
         check(all(same.values()),
               f"{tag} shot {k} in the chunk differs from the shot alone: "
               f"{same}")
-    print(f"{tag} ({cfg.nz}x{cfg.nx}, nt={cfg.nt}): {S} shots in one forward "
-          f"with strips and one backward, {strips.numel()} strip floats "
-          f"(2^32 = {2 ** 32}), {final.numel() // 5 * 13} state floats; data, "
+    print(f"{tag} ({cfg.nz}x{cfg.nx}, nt={cfg.nt}, {eng.kind}): {S} shots in "
+          f"one forward with strips and one backward, {strips.numel()} strip "
+          f"floats (2^32 = {2 ** 32}), "
+          f"{final.numel() // eng.n_fields * eng.n_state} state floats; data, "
           f"strips, final fields and d_stf of shots {list(shots)} bitwise "
           f"equal to the same shot run alone; peak memory {peak / 1e9:.3f} "
           f"GB")
@@ -717,8 +821,7 @@ def phase_invert_large(dev):
     peak = torch.cuda.max_memory_allocated()
     cfg, rs, inputs = reference_problem(dev, **grid)
     in_flight = out["shot_chunk"] or 64
-    assumed = in_flight * (parallel.strip_bytes_per_shot(cfg)
-                           + parallel.state_bytes_per_shot(cfg))
+    assumed = assumed_bytes(cfg, in_flight)
     print(f"[14 main path, large grid] {out['seconds']:.3f} s in L-BFGS-B, "
           f"{per_eval:.3f} s per gradient evaluation, "
           f"{cells / per_eval / 1e9:.2f} GCell/s gradient; shot chunk "
@@ -810,8 +913,7 @@ def phase_marmousi_chunked(dev, nz=750, nx=2000, nt=2001, S=8, chunk=2):
     check(all(bool(torch.isfinite(g).all()) for g in grads),
           "Marmousi-scale gradient not finite")
     cells = cfg.nz * cfg.nx * steps * S
-    assumed = chunk * (parallel.strip_bytes_per_shot(cfg)
-                       + parallel.state_bytes_per_shot(cfg))
+    assumed = assumed_bytes(cfg, chunk)
     print(f"[15 main path, Marmousi scale] {cfg.nz}x{cfg.nx}, nt={nt}, {S} "
           f"shots (the example runs 24; cut for time) in {n_chunks} chunks of "
           f"{chunk}, {survey.n_rec} receivers on row {rec_row}: misfit "
@@ -867,6 +969,390 @@ def phase_fiber_main_path():
     return counts
 
 
+def _acoustic_forward_pair(label, cfg, rs, args, tol):
+    """acoustic_forward without strips and with them: the launch counters,
+    the same data either way, and both against the plain version with
+    strips.  Returns (the kernel's (data, strips, final), the errors)."""
+    steps = cfg.nt - 1
+    plan = cuda_engine.plan_for(cfg, rs)
+    reset_counts()
+    out = cuda_acoustic.forward_cuda_acoustic_plan(plan, *args,
+                                                   save_strips=True)
+    data = cuda_acoustic.forward_cuda_acoustic_plan(plan, *args)
+    counts, _ = read_counts()
+    check(counts_are(counts, {"LAUNCHES_AC": 6 * steps,
+                              "LAUNCHES_AC_STRIPS": 3 * steps})
+          and 3 * steps == cuda_acoustic.launches_forward_acoustic(cfg),
+          f"{label}: forward launch counters {counts}")
+    check(torch.equal(data, out[0]), f"{label}: strip saving changed the data")
+    ref = cuda_acoustic.forward_plain_acoustic_strips(cfg, rs, *args)
+    d, s, f = strip_errors(out, ref)
+    check(max(d) < tol and max(s + f) < TOL,
+          f"{label}: kernel vs plain {d} {s} {f}")
+    peaks = [float(ref[0][:, c].abs().max()) for c in range(3)]
+    check(min(peaks) > 1e-3, f"{label}: no arrivals at the receivers {peaks}")
+    return out, (d, s, f)
+
+
+def _acoustic_image_pair(label, cfg, rs, args, final, strips, residual,
+                         timed=False):
+    """The imaging variant of acoustic_backward against
+    rtm_image_time_plain: image and illumination of every shot (GRAD_TOL of
+    each one's max), their sums over shots, a second run bitwise, the
+    launch counters.  With timed, returns the numbers of the kernels line
+    (the plain version's time includes its forward with strips)."""
+    lam, rho, stf, sz, sx = args
+    plan = cuda_engine.plan_for(cfg, rs)
+    vp = torch.sqrt(lam / rho).contiguous()
+    image = lambda **kw: cuda_acoustic.image_cuda_acoustic_plan(
+        plan, vp, rho, stf, sz, sx, final, strips, residual, **kw)
+    reset_counts()
+    img, ill = image()
+    counts, _ = read_counts()
+    n = cuda_acoustic.launches_backward_acoustic(cfg, rs)
+    check(counts_are(counts, {"LAUNCHES_AC_BWD": n, "LAUNCHES_AC_IMG": n}),
+          f"{label}: imaging launch counters {counts}")
+    (img_p, ill_p), plain_ms = _timed(
+        lambda: cuda_acoustic.rtm_image_time_plain(cfg, rs, vp, rho, stf, sz,
+                                                   sx, residual))
+    check(float(img_p.abs().max()) > 0 and float(ill_p.max()) > 0,
+          f"{label}: the plain image is zero")
+    img_s, ill_s = image(sum_shots=True)
+    err = [rel_err(img, img_p), rel_err(ill, ill_p),
+           rel_err(img_s, img_p.sum(0)), rel_err(ill_s, ill_p.sum(0))]
+    check(all(np.isfinite(err)) and max(err) < GRAD_TOL,
+          f"{label}: image, illumination and their shot sums vs plain {err}")
+    again = image()
+    check(torch.equal(again[0], img) and torch.equal(again[1], ill),
+          f"{label}: a second imaging run gave other bits")
+    print(f"{label} imaging variant vs plain: max rel err (image, "
+          f"illumination, their sums over shots) {err} < {GRAD_TOL}; a "
+          f"second run bitwise equal; launches {n}")
+    if not timed:
+        return None
+    abs_err = max(float((a - b).abs().max())
+                  for a, b in ((img, img_p), (ill, ill_p)))
+    n_bytes = nbytes(vp, rho, stf, final, strips, residual, img, ill)
+    del img_p, ill_p, again
+    ms = cuda_ms(image, 3)
+    b_ms, b_by = bound(cfg, stf.shape[0], AC_IMG_OPS_PER_CELL_STEP, n_bytes)
+    print(f"{label} imaging variant, CUDA events: kernel {ms:.3f} ms (mean "
+          f"of 3), plain {plain_ms:.3f} ms (the comparison's run, with its "
+          f"forward); bound {b_ms:.3f} ms ({b_by}, {n_bytes / 1e9:.3f} GB)")
+    return dict(max_abs_err=abs_err, max_rel_err=max(err), ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def _acoustic_case(label, cfg, rs, args):
+    """A small acoustic case: forward, strips, backward (cotangent: the L2
+    residual against the model with lam raised by 3%), a second backward
+    bitwise, the adjoint dot product, the reconstruction, the image."""
+    plan = cuda_engine.plan_for(cfg, rs)
+    (syn, strips, final), (d, s, f) = _acoustic_forward_pair(label, cfg, rs,
+                                                             args, TOL)
+    cot = ac_perturbed_cotangent(cfg, rs, args, syn)
+    check(float(cot.abs().max()) > 1e-3 * float(syn.abs().max()),
+          f"{label}: the cotangent is round-off")
+    res = (*args, final, strips, cot)
+    g = cuda_acoustic.backward_cuda_acoustic_plan(plan, *res)
+    g_ref = cuda_acoustic.backward_plain_acoustic(cfg, rs, *res)
+    check(all(float(a.abs().max()) > 0 for a in g_ref),
+          f"{label}: a plain gradient is zero")
+    err = grad_errors(g, g_ref, cfg, AC_INTERIOR)
+    check(max(err) < GRAD_TOL, f"{label}: backward vs plain {err}")
+    reset_counts()
+    again = cuda_acoustic.backward_cuda_acoustic_plan(plan, *res)
+    counts, _ = read_counts()
+    n = cuda_acoustic.launches_backward_acoustic(cfg, rs)
+    check(counts_are(counts, {"LAUNCHES_AC_BWD": n}),
+          f"{label}: backward launch counters {counts}")
+    check(all(torch.equal(a, b) for a, b in zip(g, again)),
+          f"{label}: a second backward run gave other bits")
+    _, _, gap = adjoint_gap(cfg, rs, args)
+    check(gap <= DOT_TOL, f"{label}: adjoint gap {gap} > {DOT_TOL}")
+    kern = reconstruction_residual(
+        cfg, cuda_acoustic.reconstruct_cuda_acoustic_plan(
+            plan, *args, final, strips), syn)
+    plain = reconstruction_residual(
+        cfg, cuda_acoustic.reconstruct_plain_acoustic(
+            cfg, rs, *args, final, strips), syn)
+    check(np.isfinite(kern) and kern <= RECON_RATIO * plain,
+          f"{label}: reconstruction residual {kern} > {RECON_RATIO} x {plain}")
+    print(f"[17 acoustic vs plain] {label} ({cfg.nz}x{cfg.nx}, nt={cfg.nt}, "
+          f"{type(rs).__name__}, {rs.n_rec} receivers): max rel err data per "
+          f"channel {d}, strips {max(s)}, final fields {max(f)} < {TOL}; "
+          f"(d_lam, d_rho, d_stf) {err} < {GRAD_TOL} on the tight interior "
+          f"less {AC_INTERIOR}; adjoint gap {gap:.3e} <= {DOT_TOL}; a second "
+          f"backward bitwise equal; reconstruction residual / peak |pr| "
+          f"kernel {kern:.6e}, plain f32 {plain:.6e}; launches a forward "
+          f"3 x {cfg.nt - 1}, a backward {n}")
+    _acoustic_image_pair(f"[17 acoustic vs plain] {label}", cfg, rs, args,
+                         final, strips, -cot)
+
+
+def phase_acoustic_vs_plain(dev):
+    """K5, K5 with strips, K6 and its imaging variant against their plain
+    versions: AC_CASES, the reference shape (nt=301, 2 shots) and the
+    reference workload, where they are timed: returns that case's (forward,
+    forward with strips, backward, imaging) numbers."""
+    for name in AC_CASES:
+        _acoustic_case(name, *ac_problem(name, device=dev))
+    _acoustic_case("reference shape nt=301",
+                   *ac_row_problem(101, 201, 32, 301, 2, 40, device=dev))
+
+    cfg, rs, args = acoustic_reference_problem(dev)
+    plan = cuda_engine.plan_for(cfg, rs)
+    tag = "[17 acoustic vs plain] reference workload"
+    fwd_strips, bwd = hold_against_plain(tag, cfg, rs, args, TOL_LONG,
+                                         silent_samples=0, eng=ACOUSTIC)
+    # K5 without strips: its data equal those of the forward with strips
+    # (held against plain just above) bit for bit, so they share its errors
+    syn, strips, final = cuda_acoustic.forward_cuda_acoustic_plan(
+        plan, *args, save_strips=True)
+    out = cuda_acoustic.forward_cuda_acoustic_plan(plan, *args)
+    check(torch.equal(out, syn), f"{tag}: strip saving changed the data")
+    ref, plain_ms = _timed(lambda: cuda_acoustic.forward_plain_acoustic(
+        cfg, rs, *args))
+    d = [rel_err(out[:, c], ref[:, c]) for c in range(3)]
+    check(max(d) < TOL_LONG, f"{tag}: forward vs plain {d} >= {TOL_LONG}")
+    abs_err = float((out - ref).abs().max())
+    n_bytes = nbytes(*args[:3], out)
+    del ref
+    ms = cuda_ms(lambda: cuda_acoustic.forward_cuda_acoustic_plan(plan, *args),
+                 5)
+    b_ms, b_by = bound(cfg, 19, AC_FWD_OPS_PER_CELL_STEP, n_bytes)
+    print(f"{tag} (19 shots): forward without strips vs plain: max rel err "
+          f"per channel {d} < {TOL_LONG}; CUDA events: kernel {ms:.3f} ms "
+          f"(mean of 5), plain {plain_ms:.3f} ms (the comparison's run); "
+          f"bound {b_ms:.3f} ms ({b_by}, {n_bytes / 1e9:.3f} GB)")
+    fwd = dict(max_abs_err=abs_err, max_rel_err=max(d), ms=ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    residual = -ac_perturbed_cotangent(cfg, rs, args, syn)
+    img = _acoustic_image_pair(tag, cfg, rs, args, final, strips, residual,
+                               timed=True)
+    _, _, gap = adjoint_gap(cfg, rs, args)
+    check(gap <= DOT_TOL, f"{tag}: adjoint gap {gap} > {DOT_TOL}")
+    print(f"{tag}: adjoint gap {gap:.3e} <= {DOT_TOL}")
+    return fwd, fwd_strips, bwd, img
+
+
+# The shapes of the JAX package's streamed acoustic pair (K7/K8): one shot
+# on each large grid with phase 13's receiver rows.
+AC_LARGE_CASES = ("560x720 row", "814x2064 row")
+
+
+def ac_large_problem(name, dev, shots=1):
+    """(cfg, rs, acoustic inputs) of a LARGE_CASES row case, the one shot
+    repeated `shots` times along x."""
+    nz, nx, nt, kind = LARGE_CASES[name]
+    cfg, rs, inputs = large_problem(nz, nx, nt, kind, dev)
+    lam, rho, stf, sz, sx = acoustic_args(inputs)
+    if shots > 1:
+        stf = stf.expand(shots, nt).contiguous()
+        sz = np.full(shots, sz[0])
+        sx = np.linspace(60, nx - 60, shots).astype(np.int64)
+    return cfg, rs, (lam, rho, stf, sz, sx)
+
+
+def phase_acoustic_large(dev):
+    """K5 with strips and K6 at the streamed pair's shapes against the plain
+    versions, one shot each (returns their numbers by case), and a chunk
+    of shots at 560x720 whose strip floats pass 2^32 against its first and
+    last shot run alone, bit for bit."""
+    numbers = {}
+    for name in AC_LARGE_CASES:
+        numbers[name] = hold_against_plain(
+            f"[18 acoustic, streamed shapes vs plain] {name}",
+            *ac_large_problem(name, dev), TOL_LONG, eng=ACOUSTIC)
+        torch.cuda.empty_cache()
+    cfg, rs, _ = ac_large_problem("560x720 row", dev)
+    per_shot = (cfg.nt - 1) * 3 * 2 * cfg.n_bnd_layers * (cfg.nz + cfg.nx)
+    shots = 2 ** 32 // per_shot + 1
+    cfg, rs, args = ac_large_problem("560x720 row", dev, shots)
+    chunk_against_single_shots(
+        "[18 acoustic, streamed shapes] a chunk at 560x720", cfg, rs, args,
+        (0, shots - 1), eng=ACOUSTIC)
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def _acoustic_gradient_fn(cfg, rs, args):
+    """One acoustic gradient evaluation as the JAX package's bench makes it
+    (bench.py sec_acoustic): loss 0.5 sum(d^2), gradients of lam and rho
+    through propagate_cuda_acoustic_plan."""
+    lam, rho, stf, sz, sx = args
+    plan = cuda_engine.plan_for(cfg, rs)
+
+    def gradient():
+        params = [a.clone().requires_grad_() for a in (lam, rho)]
+        d = cuda_acoustic.propagate_cuda_acoustic_plan(plan, *params, stf,
+                                                       sz, sx)
+        return torch.autograd.grad(0.5 * (d * d).sum(), params)
+
+    return gradient
+
+
+def _counted_gradient(label, cfg, rs, args, reps):
+    """One gradient of `_acoustic_gradient_fn` with the counts set to 0 just
+    before and read just after (exact, no plain call), finite and nonzero;
+    then its CUDA-event time.  Returns (counts, ms)."""
+    gradient = _acoustic_gradient_fn(cfg, rs, args)
+    steps = cfg.nt - 1
+    reset_counts()
+    g = gradient()
+    torch.cuda.synchronize()
+    counts, plain_calls = read_counts()
+    check_counts(label, counts, {
+        "LAUNCHES_AC": 3 * steps, "LAUNCHES_AC_STRIPS": 3 * steps,
+        "LAUNCHES_AC_BWD": 2 * steps + 1}, plain_calls)
+    gmax = [float(a.abs().max()) for a in g]
+    check(all(bool(torch.isfinite(a).all()) for a in g) and min(gmax) > 0,
+          f"{label}: gradient maxima {gmax}")
+    del g
+    ms = cuda_ms(gradient, reps, warm=False)
+    S = args[2].shape[0]
+    cells = cfg.nz * cfg.nx * steps * S
+    print(f"{label} ({cfg.nz}x{cfg.nx}, nt={cfg.nt}, {S} shot(s)): max "
+          f"|gradient| (lam, rho) {gmax}; launches forward with strips 3 x "
+          f"{steps} = {counts['LAUNCHES_AC']}, backward 2 x {steps} + 1 = "
+          f"{counts['LAUNCHES_AC_BWD']}, as expected; plain calls 0; "
+          f"{ms:.3f} ms a gradient (CUDA events, mean of {reps}), "
+          f"{cells / ms / 1e6:.2f} GCell/s")
+    return counts, ms
+
+
+def _rtm(label, argv, want, z_refl, tol_rows=15):
+    """`rtm` through cli.main with the counts set to 0 just before and read
+    just after: exact launch counts, no plain call, the .npz keys finite,
+    the muted image's peak within tol_rows rows (one wavelength at 10 Hz)
+    of the reflector."""
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "img.npz")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, illum, peak = cli.main(["rtm", *argv, "--out", out])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts, plain_calls = read_counts()
+        npz = np.load(out)
+        keys = sorted(npz.files)
+        check(keys == sorted(["image", "image_muted", "illumination",
+                              "image_compensated", "vp_true",
+                              "vp_background", "z_reflector"]),
+              f"{label}: .npz keys {keys}")
+        check(all(np.isfinite(npz[k]).all() for k in keys),
+              f"{label}: a .npz array is not finite")
+        check(np.array_equal(npz["image"], img) and int(npz["z_reflector"])
+              == z_refl, f"{label}: the .npz does not hold the image")
+        shape = npz["image"].shape
+    check_counts(label, counts, want, plain_calls)
+    check(float(np.abs(img).max()) > 0 and float(illum.max()) > 0,
+          f"{label}: the image or the illumination is zero")
+    check(abs(peak - z_refl) <= tol_rows,
+          f"{label}: muted-image peak at z={peak}, reflector at z={z_refl}")
+    print(f"{label} image {shape} finite, muted-image peak at z={peak}, "
+          f"reflector at z={z_refl} (within {tol_rows} rows); launches "
+          f"{ {k: v for k, v in counts.items() if v} }, as expected; plain "
+          f"calls 0; {seconds:.3f} s in all")
+    return counts
+
+
+def phase_acoustic_main_paths(dev, streamed):
+    """The acoustic and imaging main paths, each with exact launch counts
+    and no plain call.  `streamed`: phase 18's numbers by case.  Returns
+    what the kernels line needs."""
+    r = {}
+    # (a) forward --physics acoustic at the CLI defaults, the files read back
+    with tempfile.TemporaryDirectory() as d:
+        reset_counts()
+        data = cli.main(["forward", "--physics", "acoustic", "--data-dir", d])
+        counts, plain_calls = read_counts()
+        check_counts("[19a main path] forward --physics acoustic", counts,
+                     {"LAUNCHES_AC": 3 * 1500}, plain_calls)
+        out = data.cpu().numpy()
+        check(data.device.type == "cuda" and out.shape == (19, 3, 181, 1501)
+              and np.isfinite(out).all(), f"acoustic data {out.shape}")
+        peaks = [float(np.abs(out[:, c]).max()) for c in range(3)]
+        check(min(peaks) > 0, f"an acoustic channel is zero: {peaks}")
+        n_files = len([f for f in os.listdir(d) if f.startswith("Shot_")])
+        back = sio.read_shots(d, 19, 181, 1501)
+        check(n_files == 76 and np.array_equal(back[:, :3], out)
+              and not back[:, 3].any(), "acoustic Shot files differ from the "
+              "data, or ett is not zero")
+    r["forward"] = counts
+    print(f"[19a main path] forward --physics acoustic: "
+          f"{counts['LAUNCHES_AC']} kernel launches, data {out.shape} finite, "
+          f"max |pr, vx, vz| {peaks}, 76 Shot files read back equal, ett 0")
+
+    # (b) the same at 560x720 padded, 64 shots, nt=2001: the path that the
+    # streamed forward carries on the TPU; then held against plain there
+    grid = dict(nz=496, nx=656, dz=10.0, dx=10.0, nt=2001, dt=0.001)
+    argv = [a for k, v in grid.items() for a in (f"--{k}", f"{v:g}")]
+    reset_counts()
+    data = cli.main(["forward", "--physics", "acoustic", *argv])
+    torch.cuda.synchronize()
+    counts, plain_calls = read_counts()
+    check_counts("[19b main path] forward --physics acoustic at 560x720",
+                 counts, {"LAUNCHES_AC": 3 * 2000}, plain_calls)
+    check(tuple(data.shape) == (64, 3, 636, 2001)
+          and bool(torch.isfinite(data).all()), f"data {tuple(data.shape)}")
+    cfg, rs, args = acoustic_reference_problem(dev, **grid)
+    plan = cuda_engine.plan_for(cfg, rs)
+    ref, plain_ms = _timed(lambda: cuda_acoustic.forward_plain_acoustic(
+        cfg, rs, *args))
+    d = [rel_err(data[:, c], ref[:, c]) for c in range(3)]
+    check(min(float(ref[:, c].abs().max()) for c in range(3)) > 1e-6
+          and max(d) < TOL_LONG, f"[19b] forward vs plain {d}")
+    abs_err = float((data - ref).abs().max())
+    n_bytes = nbytes(*args[:3], data)
+    del ref, data
+    ms = cuda_ms(lambda: cuda_acoustic.forward_cuda_acoustic_plan(plan, *args),
+                 2)
+    b_ms, b_by = bound(cfg, 64, AC_FWD_OPS_PER_CELL_STEP, n_bytes)
+    cells = cfg.nz * cfg.nx * 2000 * 64
+    print(f"[19b main path] forward --physics acoustic at {cfg.nz}x{cfg.nx}, "
+          f"nt=2001, 64 shots: {counts['LAUNCHES_AC']} kernel launches; vs "
+          f"plain on the same inputs: max rel err per channel {d} < "
+          f"{TOL_LONG}; CUDA events: kernel {ms:.3f} ms (mean of 2, "
+          f"{cells / ms / 1e6:.2f} GCell/s), plain {plain_ms:.3f} ms (the "
+          f"comparison's run); bound {b_ms:.3f} ms ({b_by}, "
+          f"{n_bytes / 1e9:.3f} GB)")
+    r["forward_large"] = (counts, dict(
+        max_abs_err=abs_err, max_rel_err=max(d), ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by))
+    torch.cuda.empty_cache()
+
+    # (c) rtm at its defaults: acoustic, 19 shots in one chunk
+    r["rtm"] = _rtm("[19c main path] rtm (acoustic):", [], {
+        "LAUNCHES_AC": 3 * 3 * 1500, "LAUNCHES_AC_STRIPS": 3 * 1500,
+        "LAUNCHES_AC_BWD": 2 * 1500 + 1, "LAUNCHES_AC_IMG": 2 * 1500 + 1}, 67)
+
+    # (d) the bench's acoustic gradient at the reference workload
+    bench = acoustic_reference_problem(dev, vp=2000.0)
+    r["gradient"] = _counted_gradient(
+        "[19d main path] the bench's acoustic gradient (lam = rho 2000^2)",
+        *bench, 3)
+
+    # (e) rtm --physics elastic: K1, K1 with strips and K2 with cotangents
+    # on pr, vx and vz
+    r["rtm_elastic"] = _rtm(
+        "[19e main path] rtm --physics elastic --nt 1001:",
+        ["--physics", "elastic", "--nt", "1001"], {
+            "LAUNCHES": 2 * 3 * 1000, "LAUNCHES_STRIPS": 3 * 1000,
+            "LAUNCHES_BWD": 2 * 1000 + 1}, 67)
+
+    # (f) the same differentiable propagation at the streamed pair's shapes
+    # (propagate_pallas_acoustic_auto's streamed branch on the TPU)
+    for name in AC_LARGE_CASES:
+        counts, _ = _counted_gradient(
+            f"[19f main path] the acoustic gradient at {name}",
+            *ac_large_problem(name, dev), 2)
+        r[name] = (counts, streamed[name])
+        torch.cuda.empty_cache()
+    return r
+
+
 def _profile(label, fn):
     """Device-time breakdown of fn() under torch.profiler: time per kernel,
     the device window from the first device event to the last, and its
@@ -876,8 +1362,11 @@ def _profile(label, fn):
 
     fn()  # warm-up outside the trace
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: with the CPU's events beside them, building the
+    # event list of a gradient's trace (19000 events) can take over a minute
+    # on the host, and the device spans come out the same
+    # (examples/profiler_cost_torch.py)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -930,13 +1419,17 @@ def _gradient_fn(cfg, rs, inputs, obs=None):
 
 def phase_profile(dev):
     """One reference forward_cuda call, one reference gradient evaluation,
-    and one one-shot gradient evaluation on each large grid."""
+    one reference acoustic gradient evaluation, and one one-shot gradient
+    evaluation on each large grid."""
     cfg, rs, inputs = reference_problem(dev)
     plan = cuda_engine.plan_for(cfg, rs)
     _profile("one reference forward_cuda_plan",
              lambda: cuda_engine.forward_cuda_plan(plan, *inputs))
     _profile("one reference gradient evaluation",
              _gradient_fn(cfg, rs, inputs))
+    _profile("one reference acoustic gradient evaluation (lam = rho 2000^2)",
+             _acoustic_gradient_fn(*acoustic_reference_problem(dev,
+                                                               vp=2000.0)))
     for name in ("560x720 row", "814x2064 row"):
         nz, nx, nt, kind = LARGE_CASES[name]
         cfg, rs, inputs = large_problem(nz, nx, nt, kind, dev)
@@ -949,9 +1442,12 @@ def kernel_record(results):
     """The JSON record of every kernel.  `launches` are the counts of the
     kernel's main path, read just after it ran from counts set to 0 just
     before; every other number was measured in this run at that main path's
-    shapes: the reference workload (K1, K1-strips, K2), the acquisition of
-    examples/das_fwi_torch.py (K1-fiber), one shot of `invert` at 560x720,
-    nt=2001 and one chunk of 2 shots at 814x2064, nt=2001 (K3, K4).
+    shapes: the reference workload (K1, K1-strips, K2; K5, K5-strips, K6 and
+    its imaging variant), the acquisition of examples/das_fwi_torch.py
+    (K1-fiber), one shot of `invert` at 560x720, nt=2001 and one chunk of 2
+    shots at 814x2064, nt=2001 (K3, K4), `forward --physics acoustic` at
+    560x720, nt=2001, 64 shots and the one-shot acoustic gradients at
+    560x720, nt=1001 and 814x2064, nt=601 (K7, K8).
     max_abs_err is in the outputs' own units, over outputs of very
     different magnitudes (the four gradients of a backward); max_rel_err is
     relative to each output's max and is what the phases check."""
@@ -999,6 +1495,41 @@ def kernel_record(results):
         kernels.append(entry(
             f"elastic_backward at {shape}, the streamed backward's shapes",
             bwd_src, stream + "1794", counts["LAUNCHES_BWD"], bwd))
+
+    ac_fwd_src = "sep2023_tpu_torch/csrc/acoustic_fwd.cu"
+    ac_bwd_src = "sep2023_tpu_torch/csrc/acoustic_bwd.cu"
+    k5, k5_strips, k6, k6_img = r[17]
+    ac = r[19]
+    kernels += [
+        entry("acoustic_forward (pressure, velocity, record)", ac_fwd_src,
+              fused + "1512", ac["forward"]["LAUNCHES_AC"], k5),
+        entry("acoustic_forward with boundary strips (pressure, velocity, "
+              "record)", ac_fwd_src, fused + "1512",
+              ac["gradient"][0]["LAUNCHES_AC_STRIPS"], k5_strips),
+        entry("acoustic_backward (velocity, pressure, shot sum)", ac_bwd_src,
+              fused + "1746", ac["gradient"][0]["LAUNCHES_AC_BWD"], k6),
+        entry("acoustic_backward, imaging variant (velocity, pressure with "
+              "the image and illumination accumulators, shot sum): "
+              "acoustic.rtm_image_time's route on the card", ac_bwd_src,
+              "sep2023_tpu/acoustic.py:224", ac["rtm"]["LAUNCHES_AC_IMG"],
+              k6_img),
+        entry("acoustic_forward at 560x720, nt=2001, 64 shots, the streamed "
+              "acoustic forward's shapes", ac_fwd_src, stream + "2167",
+              ac["forward_large"][0]["LAUNCHES_AC"], ac["forward_large"][1]),
+    ]
+    for name, shape in (("560x720 row", "560x720, nt=1001, 1 shot"),
+                        ("814x2064 row", "814x2064, nt=601, 1 shot")):
+        counts, (fwd, bwd) = ac[name]
+        kernels.append(entry(
+            f"acoustic_forward with boundary strips at {shape}, the streamed "
+            "acoustic forward's shapes", ac_fwd_src, stream + "2167",
+            counts["LAUNCHES_AC_STRIPS"], fwd))
+        kernels.append(entry(
+            f"acoustic_backward at {shape}, the streamed acoustic "
+            "backward's shapes", ac_bwd_src, stream + "2493",
+            counts["LAUNCHES_AC_BWD"], bwd))
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']}: no launch on its main path")
     return {"kernels": kernels}
 
 
@@ -1026,6 +1557,9 @@ def main():
         (14, lambda: phase_invert_large(dev)),
         (15, lambda: phase_marmousi_chunked(dev)),
         (16, phase_fiber_main_path),
+        (17, lambda: phase_acoustic_vs_plain(dev)),
+        (18, lambda: phase_acoustic_large(dev)),
+        (19, lambda: phase_acoustic_main_paths(dev, results[18])),
         (6, lambda: phase_profile(dev)),
     ]
     for number, run in phases:

@@ -9,12 +9,14 @@ CUDA kernel (csrc/, built with nvcc at first use).
 Layers (bottom-up):
   ops.fd / ops.signal                stencils, taper window
   cpml, medium                       absorbing boundaries, material fields
-  propagator                         plain PyTorch elastic forward
-  ops.cuda_engine                    the CUDA forward kernel, its plain version
+  propagator, acoustic               plain PyTorch elastic and acoustic engines
+  ops.cuda_engine, ops.cuda_acoustic the CUDA kernels, their plain versions
   parallel, convert, io              geometry, JAX-array conversion, Shot files
-  api, cli                           ElasticPropagator, `forward` command
+  imaging                            chain rules, RTM images, illumination
+  api, cli                           ElasticPropagator; forward, invert, rtm
 """
 
+from sep2023_tpu_torch.acoustic import AcGeom, propagate_acoustic
 from sep2023_tpu_torch.config import (C1, C2, Grid, SimConfig, Survey,
                                       klauder, ricker, ricker_integrated)
 from sep2023_tpu_torch.medium import (MatFields, Medium, material_fields,

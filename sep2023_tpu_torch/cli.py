@@ -2,14 +2,17 @@
 
   forward   observed-data generation + throughput report   (Main-000)
   invert    twin-experiment FWI, scipy L-BFGS-B             (Main-001..003)
+  rtm       reverse-time-migration image of a layered twin  (main.cu:322+)
 
-PyTorch counterpart of `sep2023_tpu/cli.py`.  `invert` is ported in its
-default configuration (L2 misfit on the selected channels, one stage, the
-scipy optimizer, one device); each of its other options raises
-NotImplementedError naming its ROADMAP item, and `rtm` and `bench` come
-with later slices (ROADMAP M8, M9).  `--device cuda` (the default) runs the
-CUDA kernels and raises for work they cannot take; `--device cpu` runs the
-plain PyTorch versions (and, with `--x64`, float64).  Models are
+PyTorch counterpart of `sep2023_tpu/cli.py`.  `forward` runs both physics
+(`--physics elastic|acoustic`) and `rtm` both imaging conditions (the
+acoustic time-derivative one by default, the elastic zero-lag one).
+`invert` is ported in its default configuration (L2 misfit on the selected
+channels, one stage, the scipy optimizer, one device); each of its other
+options raises NotImplementedError naming its ROADMAP item, and `bench`
+comes with a later slice (ROADMAP M8).  `--device cuda` (the default) runs
+the CUDA kernels and raises for work they cannot take; `--device cpu` runs
+the plain PyTorch versions (and, with `--x64`, float64).  Models are
 synthesized (models.py) because the reference git-ignores its
 Models/*.txt grids.
 """
@@ -22,14 +25,15 @@ import time
 import numpy as np
 import torch
 
-from sep2023_tpu_torch import heads, medium, models, optimize, parallel
+from sep2023_tpu_torch import (acoustic, heads, imaging, medium, models,
+                               optimize, parallel)
 from sep2023_tpu_torch import io as sio
 from sep2023_tpu_torch import survey_tools
 from sep2023_tpu_torch.config import (SimConfig, Survey, klauder, ricker,
                                       ricker_integrated, sim_config_to_json)
-from sep2023_tpu_torch.ops import cuda_engine
+from sep2023_tpu_torch.ops import cuda_acoustic, cuda_engine
 from sep2023_tpu_torch.ops import signal as sg
-from sep2023_tpu_torch.propagator import CHANNELS
+from sep2023_tpu_torch.propagator import CHANNELS, propagate
 
 WAVELETS = {"ricker": ricker, "ricker_int": ricker_integrated,
             "klauder": klauder}
@@ -82,8 +86,7 @@ def cmd_forward(args):
     medium.check_lambda(med.lam)  # Model.cu:37-40
 
     if args.physics == "acoustic":
-        raise NotImplementedError(
-            "acoustic forward is not ported yet (ROADMAP M9, kernel K5)")
+        return _forward_acoustic(args, cfg, survey, med, stf)
 
     plan, _ = parallel._cuda_plan(cfg, survey)
     engine = "CUDA kernel" if device.type == "cuda" else "plain (CPU)"
@@ -92,8 +95,7 @@ def cmd_forward(args):
     def fwd():
         data = cuda_engine.forward_cuda_plan(plan, med.lam, med.mu, med.rho,
                                              stf, *src)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        _sync(device)
         return data
 
     t0 = time.perf_counter()
@@ -112,6 +114,41 @@ def cmd_forward(args):
         _export_config(args.data_dir, cfg, survey)
         print(f"wrote {survey.n_shots} shots to {args.data_dir}")
     return data
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _forward_acoustic(args, cfg, survey, med, stf):
+    """`forward --physics acoustic` (the standalone CLI's acoustic branch,
+    main.cu:180-197): lam = rho vp^2 through the acoustic forward kernel on
+    the card, at any grid size, or its plain version on the CPU.  Writes the
+    4-channel Shot_* files with a zero ett."""
+    device = med.rho.device
+    plan, _ = parallel._cuda_plan(cfg, survey)
+    print("engine: " + (cuda_engine.plan_engine_name(plan, "acoustic")
+                        if device.type == "cuda"
+                        else "plain PyTorch (acoustic, CPU)"))
+    lam_ac = (med.rho * med.vp ** 2).contiguous()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        data3 = cuda_acoustic.forward_cuda_acoustic_plan(
+            plan, lam_ac, med.rho.contiguous(), stf.contiguous(),
+            survey.src_z + cfg.npml, survey.src_x + cfg.npml)
+    _sync(device)
+    t_run = time.perf_counter() - t0
+    note = " (incl. kernel build)" if device.type == "cuda" else ""
+    print(f"acoustic forward: {survey.n_shots} shots in {t_run:.2f}s{note}")
+    if args.data_dir:
+        # keep the 4-channel Shot_* format; ett is zero in acoustic mode
+        d = np.zeros((survey.n_shots, 4, survey.n_rec, cfg.nt), np.float32)
+        d[:, :3] = data3.cpu().numpy()
+        sio.write_shots(args.data_dir, d)
+        _export_config(args.data_dir, cfg, survey)
+        print(f"wrote {survey.n_shots} shots to {args.data_dir}")
+    return data3
 
 
 def _export_config(data_dir, cfg, survey):
@@ -281,6 +318,164 @@ def cmd_invert(args):
             "shot_chunk": args.shot_chunk}
 
 
+def _rtm_acoustic(cfg, survey, vpt, vpb, rho, stf, device):
+    """(image, illumination) of `rtm --physics acoustic`, summed over shots:
+    observed and synthetic data through the acoustic forward, their
+    difference migrated with the time-derivative condition.  On the card
+    the kernels, in chunks of `auto_shot_chunk(acoustic=True)` shots; on the
+    CPU the plain propagator."""
+    sz, sx = survey.src_z + cfg.npml, survey.src_x + cfg.npml
+    S = survey.n_shots
+    if device.type != "cuda":
+        geoms = parallel.survey_to_geoms(survey, cfg.npml, device=device,
+                                         dtype=rho.dtype)
+        ac = acoustic.AcGeom(geoms.src_z, geoms.src_x, geoms.rec_z,
+                             geoms.rec_x)
+        with torch.no_grad():
+            obs = acoustic.propagate_acoustic_shots(cfg, rho * vpt ** 2, rho,
+                                                    stf, ac)
+            syn = acoustic.propagate_acoustic_shots(cfg, rho * vpb ** 2, rho,
+                                                    stf, ac)
+        img, ill = acoustic.rtm_image_time_shots(cfg, vpb, rho, stf, ac,
+                                                 obs - syn)
+        return img.sum(0), ill.sum(0)
+    plan, _ = parallel._cuda_plan(cfg, survey)
+    print("engine: " + cuda_engine.plan_engine_name(plan, "acoustic"))
+    chunk = parallel.auto_shot_chunk(cfg, S, acoustic=True, device=device)
+    lam_t, lam_b = (rho * vpt ** 2).contiguous(), (rho * vpb ** 2).contiguous()
+    img = torch.zeros_like(rho)
+    ill = torch.zeros_like(rho)
+    with torch.no_grad():
+        for a, b in parallel._chunks(S, chunk):
+            src = (stf[a:b].contiguous(), sz[a:b], sx[a:b])
+            obs = cuda_acoustic.forward_cuda_acoustic_plan(plan, lam_t, rho,
+                                                           *src)
+            syn = cuda_acoustic.forward_cuda_acoustic_plan(plan, lam_b, rho,
+                                                           *src)
+            im, il = cuda_acoustic.rtm_image_time_cuda_plan(
+                plan, vpb, rho, *src, obs - syn, sum_shots=True)
+            img += im
+            ill += il
+    return img, ill
+
+
+def _rtm_elastic(cfg, survey, vpt, vpb, rho, stf, channels, device):
+    """(image, illumination) of `rtm --physics elastic`, summed over shots:
+    the zero-lag Vp condition is the Vp gradient of the L2 misfit on
+    `channels`.  On the card through the elastic kernels (make_cuda_misfit,
+    in chunks of `auto_shot_chunk` shots); on the CPU imaging.rtm_image a
+    shot.  The illumination is an eager forward on the tensors' device."""
+    vst, vsb = vpt / np.sqrt(2.2), vpb / np.sqrt(2.2)
+    S = survey.n_shots
+    geoms = parallel.survey_to_geoms(survey, cfg.npml, device=device,
+                                     dtype=rho.dtype)
+    lam_t, mu_t = (vpt ** 2 - 2.0 * vst ** 2) * rho, vst ** 2 * rho
+    if device.type == "cuda":
+        plan, _ = parallel._cuda_plan(cfg, survey)
+        print("engine: " + cuda_engine.plan_engine_name(plan))
+        chunk = parallel.auto_shot_chunk(cfg, S, device=device)
+        obs = parallel.make_forward(cfg, survey, use_kernels=True,
+                                    shot_chunk=chunk, device=device)(
+            lam_t.contiguous(), mu_t.contiguous(), rho, stf)
+        loss = parallel.make_cuda_misfit(cfg, survey, channels=channels,
+                                         shot_chunk=chunk)
+        vp_ = vpb.clone().requires_grad_()
+        val = loss((vp_ ** 2 - 2.0 * vsb ** 2) * rho, vsb ** 2 * rho, rho,
+                   stf, obs, torch.ones(S, device=device, dtype=rho.dtype))
+        (img,) = torch.autograd.grad(val, vp_)
+    else:
+        img = torch.zeros_like(rho)
+        for i in range(S):
+            g = type(geoms)(*(None if t is None else t[i] for t in geoms))
+            with torch.no_grad():
+                obs = propagate(cfg, lam_t, mu_t, rho, stf[i], g)
+            img += imaging.rtm_image(cfg, vpb, vsb, rho, stf[i], g, obs,
+                                     channels=channels)
+    # per-cell source-energy illumination for the compensated product
+    ill = imaging.source_illumination(
+        cfg, (vpb ** 2 - 2.0 * vsb ** 2) * rho, vsb ** 2 * rho, rho, stf,
+        geoms).sum(0)
+    return img, ill
+
+
+def cmd_rtm(args):
+    """RTM command: the standalone CLI's adjoint imaging flow (main.cu:322+).
+
+    A twin experiment for imaging: observed data from a layered true model,
+    migrated with a smooth background.  --physics acoustic (the default)
+    uses the time-derivative condition (image_vel_time.cu), --physics
+    elastic the zero-lag Vp condition (image_vel.cu, the Vp gradient of the
+    L2 misfit).  Writes the stacked image, its muted and
+    illumination-compensated copies and the models to --out as .npz.
+    Returns (image, illumination, row of the muted image's peak)."""
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda needs a CUDA device; --device cpu "
+                           "runs the plain PyTorch version")
+    if args.x64 and device.type != "cpu":
+        raise NotImplementedError("--x64 runs on the CPU only: the CUDA "
+                                  "kernels compute in float32")
+    dtype = torch.float64 if args.x64 else torch.float32
+    bad = [c for c in args.channels if c not in CHANNELS]
+    if bad:
+        raise SystemExit(f"unknown channel(s) {bad}; choose from {CHANNELS}")
+    # classic surface acquisition (shots and receivers near z=0, reflections
+    # recorded from above): the DAS bottom-row benchmark survey is an FWI
+    # geometry, not a migration one
+    cfg = SimConfig(nz=args.nz + 2 * args.npml, nx=args.nx + 2 * args.npml,
+                    dz=args.dz, dx=args.dx, nt=args.nt, dt=args.dt,
+                    f0=args.f0, npml=args.npml)
+    src_x = np.arange(10, args.nx - 10, 10)
+    survey = Survey(src_z=np.full(len(src_x), 2), src_x=src_x,
+                    rec_z=np.full(args.nx - 20, 2),
+                    rec_x=np.arange(10, args.nx - 10))
+    w = torch.as_tensor(WAVELETS[args.wavelet](cfg.f0, cfg.nt, cfg.dt),
+                        device=device).to(dtype)
+    stf = w.expand(survey.n_shots, cfg.nt).contiguous()
+
+    # layered true model: a reflector at 2/3 depth the smooth background
+    # lacks; the image must light it back up
+    z_refl = int(args.nz * 2 / 3)
+    vp_t = models.layered(args.nz, args.nx, [z_refl], [3000.0, 3450.0])
+    vp_bg = models.smooth(vp_t, sigma=12.0)
+    pad = lambda m: torch.as_tensor(medium.pad_model_np(m, cfg.npml),
+                                    device=device).to(dtype).contiguous()
+    rho = pad(models.constant(args.nz, args.nx, 2400.0))
+    cfg.check_stability(float(vp_t.max()))
+    survey_tools.check_reach(cfg, survey, float(vp_t.max()))
+
+    if args.physics == "acoustic":
+        img, illum = _rtm_acoustic(cfg, survey, pad(vp_t), pad(vp_bg), rho,
+                                   stf, device)
+        condition = "time-derivative (image_vel_time.cu)"
+    else:
+        img, illum = _rtm_elastic(cfg, survey, pad(vp_t), pad(vp_bg), rho,
+                                  stf, tuple(args.channels), device)
+        condition = ("zero-lag (image_vel.cu, CUDA kernels)"
+                     if device.type == "cuda" else "zero-lag (image_vel.cu)")
+
+    compensated = imaging.illumination_compensate(img, illum).cpu().numpy()
+    img, illum = img.cpu().numpy(), illum.cpu().numpy()
+    assert np.isfinite(img).all()
+    # acquisition mute: the raw adjoint image carries the usual near-source/
+    # receiver imprint; zero the shallow rows before diagnostics (standard
+    # migration practice)
+    muted = img.copy()
+    mute_to = cfg.npml + 2 + max(6, int(round(3000.0 / cfg.f0 / cfg.dz / 2)))
+    muted[:mute_to, :] = 0.0
+    zi, xi = cfg.grid.interior_slices()
+    peak = int(np.abs(muted[zi, xi]).mean(axis=1).argmax())
+    print(f"rtm ({args.physics}, {condition}): {survey.n_shots} shots, "
+          f"reflector at z={z_refl}, muted-image peak at z={peak}")
+    out = args.out or "rtm_image.npz"
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    np.savez(out, image=img, image_muted=muted, illumination=illum,
+             image_compensated=compensated, vp_true=vp_t,
+             vp_background=vp_bg, z_reflector=z_refl)
+    print(f"wrote {out}")
+    return img, illum, peak
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="sep2023_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -342,6 +537,20 @@ def main(argv=None):
     i.add_argument("--n-devices", type=int, default=0,
                    help="1 device only (shot sharding is ROADMAP M10)")
     i.set_defaults(fn=cmd_invert)
+
+    r = sub.add_parser("rtm", parents=[common])
+    r.add_argument("--physics", default="acoustic",
+                   choices=("elastic", "acoustic"),
+                   help="acoustic = the reference's main.cu RTM path with "
+                        "the image_vel_time.cu condition; elastic = zero-lag "
+                        "Vp condition via the FWI gradient machinery")
+    r.add_argument("--channels", nargs="+", default=["pr", "vx", "vz"],
+                   help="elastic imaging channels")
+    r.add_argument("--out", default="",
+                   help="output .npz path (default rtm_image.npz)")
+    r.add_argument("--x64", action="store_true",
+                   help="float64 (with --device cpu only)")
+    r.set_defaults(fn=cmd_rtm)
 
     args = p.parse_args(argv)
     return args.fn(args)

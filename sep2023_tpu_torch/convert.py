@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sep2023_tpu_torch.acoustic import AcGeom
 from sep2023_tpu_torch.config import Survey
 from sep2023_tpu_torch.ops import cuda_engine
 from sep2023_tpu_torch.propagator import ShotGeom
@@ -28,6 +29,16 @@ def params_from_numpy(lam, mu, rho, stf, geoms, *, device,
                     rec_x=i(geoms.rec_x),
                     das_w=None if das_w is None else t(das_w))
     return t(lam), t(mu), t(rho), t(stf), geom
+
+
+def acgeom_from_jax(geom, *, device="cpu") -> AcGeom:
+    """The port's AcGeom on `device` from any object with the AcGeom field
+    names (the JAX package's AcGeom of numpy or jax arrays included), index
+    arrays as int64, with or without the shot axis."""
+    i = lambda a: torch.tensor(np.asarray(a), device=device,
+                               dtype=torch.int64)
+    return AcGeom(src_z=i(geom.src_z), src_x=i(geom.src_x),
+                  rec_z=i(geom.rec_z), rec_x=i(geom.rec_x))
 
 
 def survey_from_jax(survey) -> Survey:

@@ -131,49 +131,6 @@ __device__ __forceinline__ float* grad(const Params& p, int k, int s) {
                        static_cast<size_t>(p.nz) * p.nx;
 }
 
-// Transposed stencils in gather form: the cotangent of f[i] from the
-// cotangents g of dminus / dplus at every i.
-//   dminus^T g[i] = c1 (g[i] - g[i+1]) - c2 (g[i-1] - g[i+2])
-//   dplus^T g[i]  = c1 (g[i-1] - g[i]) - c2 (g[i-2] - g[i+1])
-__device__ __forceinline__ float dz_minus_t(const float* g, int z, int x,
-                                            int nz, int nx) {
-  return stencil(at(g, z, x, nz, nx), at(g, z + 1, x, nz, nx),
-                 at(g, z - 1, x, nz, nx), at(g, z + 2, x, nz, nx));
-}
-
-__device__ __forceinline__ float dz_plus_t(const float* g, int z, int x,
-                                           int nz, int nx) {
-  return stencil(at(g, z - 1, x, nz, nx), at(g, z, x, nz, nx),
-                 at(g, z - 2, x, nz, nx), at(g, z + 1, x, nz, nx));
-}
-
-__device__ __forceinline__ float dx_minus_t(const float* g, int z, int x,
-                                            int nz, int nx) {
-  return stencil(at(g, z, x, nz, nx), at(g, z, x + 1, nz, nx),
-                 at(g, z, x - 1, nz, nx), at(g, z, x + 2, nz, nx));
-}
-
-__device__ __forceinline__ float dx_plus_t(const float* g, int z, int x,
-                                           int nz, int nx) {
-  return stencil(at(g, z, x - 1, nz, nx), at(g, z, x, nz, nx),
-                 at(g, z, x - 2, nz, nx), at(g, z, x + 1, nz, nx));
-}
-
-// Adjoint of one CPML derivative e = d ik + p', p' = b psi + a d, at zero
-// primal psi: from the cotangent ge of e and the carried cotangent of p'
-// (updated in place to that of psi), the cotangent of the raw difference d.
-__device__ __forceinline__ float cpml_deriv_adj(float ge, float ik, float a,
-                                                float b, float* psi_bar) {
-  const float q = *psi_bar + ge;
-  *psi_bar = b * q;
-  return ge * ik + a * q;
-}
-
-__device__ __forceinline__ bool in_update_mask(int z, int x, int nz,
-                                               int nx) {
-  return z >= 2 && z <= nz - 3 && x >= 2 && x <= nx - 3;
-}
-
 __device__ __forceinline__ bool in_interior(const Params& p, int z, int x) {
   return z >= p.npml && z <= p.nz - 1 - p.npml && x >= p.npml &&
          x <= p.nx - 1 - p.npml;

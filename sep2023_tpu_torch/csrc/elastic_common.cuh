@@ -1,7 +1,9 @@
-// Arithmetic shared by the forward kernel (elastic_fwd.cu) and the backward
-// kernel (elastic_bwd.cu): the O(4) stencils, the CPML derivative, the
-// interior increments of the stress and velocity half-steps, the source
-// sample and the boundary-strip layout.
+// Arithmetic shared by the forward kernels (elastic_fwd.cu, acoustic_fwd.cu)
+// and the backward kernels (elastic_bwd.cu, acoustic_bwd.cu): the O(4)
+// stencils and their transposes, the CPML derivative and its adjoint, the
+// interior increments of the elastic stress and velocity half-steps (the
+// acoustic ones are in acoustic_common.cuh), the source sample and the
+// boundary-strip layout.
 //
 // Reconstruction.  The backward rebuilds the forward's state one step back
 // by subtracting, in the interior, the increment the forward added.  Both
@@ -166,11 +168,56 @@ __device__ __forceinline__ int strip_slots(const StripGeom& g, int z, int x,
   return n;
 }
 
-// Strips of one shot and step: (S, nt-1, 5, n) -> the 5 x n block.
+// Strips of one shot and step: (S, nt-1, n_fields, n) -> the n_fields x n
+// block (5 elastic fields, 3 acoustic ones).
 __device__ __forceinline__ size_t strip_offset(const StripGeom& g, int s,
-                                               int it, int nt) {
-  return (static_cast<size_t>(s) * (nt - 1) + it) * kNumFields *
+                                               int it, int nt,
+                                               int n_fields = kNumFields) {
+  return (static_cast<size_t>(s) * (nt - 1) + it) * n_fields *
          static_cast<size_t>(g.n);
+}
+
+// Transposed stencils in gather form: the cotangent of f[i] from the
+// cotangents g of dminus / dplus at every i.
+//   dminus^T g[i] = c1 (g[i] - g[i+1]) - c2 (g[i-1] - g[i+2])
+//   dplus^T g[i]  = c1 (g[i-1] - g[i]) - c2 (g[i-2] - g[i+1])
+__device__ __forceinline__ float dz_minus_t(const float* g, int z, int x,
+                                            int nz, int nx) {
+  return stencil(at(g, z, x, nz, nx), at(g, z + 1, x, nz, nx),
+                 at(g, z - 1, x, nz, nx), at(g, z + 2, x, nz, nx));
+}
+
+__device__ __forceinline__ float dz_plus_t(const float* g, int z, int x,
+                                           int nz, int nx) {
+  return stencil(at(g, z - 1, x, nz, nx), at(g, z, x, nz, nx),
+                 at(g, z - 2, x, nz, nx), at(g, z + 1, x, nz, nx));
+}
+
+__device__ __forceinline__ float dx_minus_t(const float* g, int z, int x,
+                                            int nz, int nx) {
+  return stencil(at(g, z, x, nz, nx), at(g, z, x + 1, nz, nx),
+                 at(g, z, x - 1, nz, nx), at(g, z, x + 2, nz, nx));
+}
+
+__device__ __forceinline__ float dx_plus_t(const float* g, int z, int x,
+                                           int nz, int nx) {
+  return stencil(at(g, z, x - 1, nz, nx), at(g, z, x, nz, nx),
+                 at(g, z, x - 2, nz, nx), at(g, z, x + 1, nz, nx));
+}
+
+// Adjoint of one CPML derivative e = d ik + p', p' = b psi + a d, at zero
+// primal psi: from the cotangent ge of e and the carried cotangent of p'
+// (updated in place to that of psi), the cotangent of the raw difference d.
+__device__ __forceinline__ float cpml_deriv_adj(float ge, float ik, float a,
+                                                float b, float* psi_bar) {
+  const float q = *psi_bar + ge;
+  *psi_bar = b * q;
+  return ge * ik + a * q;
+}
+
+__device__ __forceinline__ bool in_update_mask(int z, int x, int nz,
+                                               int nx) {
+  return z >= 2 && z <= nz - 3 && x >= 2 && x <= nx - 3;
 }
 
 }  // namespace elastic

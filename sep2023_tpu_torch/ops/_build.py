@@ -106,6 +106,10 @@ def load() -> ctypes.CDLL:
         lib.elastic_forward.restype = I
         lib.elastic_backward.argtypes = [P] * 20 + [I] * 11 + [F, F, P]
         lib.elastic_backward.restype = I
+        lib.acoustic_forward.argtypes = [P] * 11 + [I] * 9 + [F, F, P]
+        lib.acoustic_forward.restype = I
+        lib.acoustic_backward.argtypes = [P] * 20 + [I] * 10 + [F, F, P]
+        lib.acoustic_backward.restype = I
         lib.elastic_error_string.argtypes = [I]
         lib.elastic_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -64,9 +64,14 @@ LAUNCHES_BWD = 0
 # The part of LAUNCHES_BWD that injected point cotangents
 # (inject_points_kernel): 1 per time step of a FiberSurvey backward.
 LAUNCHES_BWD_FIBER = 0
-# Calls of each plain version (on CPU tensors, or by a caller comparing).
+# Calls of each plain version (on CPU tensors, or by a caller comparing),
+# those of the acoustic engine (ops/cuda_acoustic.py) included.
 PLAIN_CALLS = {"forward_plain": 0, "forward_plain_strips": 0,
-               "backward_plain": 0, "reconstruct_plain": 0}
+               "backward_plain": 0, "reconstruct_plain": 0,
+               "forward_plain_acoustic": 0,
+               "forward_plain_acoustic_strips": 0,
+               "backward_plain_acoustic": 0,
+               "reconstruct_plain_acoustic": 0, "rtm_image_time_plain": 0}
 
 N_STATE_PLANES = 13  # 5 fields + 8 CPML psi
 N_WORK_PLANES = 21   # 5 adjoint fields + 8 adjoint psi + 8 stencil cotangents
@@ -76,6 +81,8 @@ ETT_MODES = {"exx": 0, "ezz": 1, "weighted": 2}  # EttMode, elastic_common.cuh
 # Adjoint planes of the work buffer that take receiver cotangents (Work,
 # elastic_bwd.cu).
 _A_VZ, _A_VX, _A_SZZ, _A_SXX = 0, 1, 2, 3
+# The same of the acoustic work buffer (Work, acoustic_bwd.cu).
+_AC_A_P, _AC_A_VZ, _AC_A_VX = 0, 1, 2
 
 
 def launches_forward(cfg: SimConfig) -> int:
@@ -192,14 +199,16 @@ def _check_survey(cfg: SimConfig, rs) -> None:
                         f"{type(rs).__name__}")
 
 
-def _injection_table(cfg: SimConfig, fs: FiberSurvey):
+def _injection_table(cfg: SimConfig, fs: FiberSurvey, acoustic=False):
     """The point recording's transpose in gather form, as a table in
     compressed-row form: one row per touched (adjoint plane, cell), sorted
     by plane and cell, its entries (receiver, channel, coefficient) sorted by
     receiver and channel, so the kernel's thread that owns a row sums it in a
     fixed order.  Returns int32 (ptr, plane, cell, ent_rec, ent_ch) and
     float32 ent_coef.  A sample's neighbour outside the grid read as 0 in
-    the forward and is dropped here."""
+    the forward and is dropped here.  acoustic: the table of the acoustic
+    recording (pr = p, vx, vz at the receiver's own cell, no ett), on the
+    adjoint planes of acoustic_bwd.cu."""
     nz, nx = cfg.nz, cfg.nx
     z = np.asarray(fs.rec_z, np.int64)
     x = np.asarray(fs.rec_x, np.int64)
@@ -213,17 +222,23 @@ def _injection_table(cfg: SimConfig, fs: FiberSurvey):
         parts.append((key[keep], r[keep], np.full(keep.sum(), ch),
                       coef[keep]))
 
-    add(_A_SZZ, z, x, 0, one)           # pr = szz + sxx
-    add(_A_SXX, z, x, 0, one)
-    add(_A_VX, z, x, 1, one)
-    add(_A_VZ, z, x, 2, one)
-    if cfg.das_channel == "exx":        # ett = vx[z,x] - vx[z,x-1]
+    ett = None if acoustic else cfg.das_channel
+    if acoustic:
+        add(_AC_A_P, z, x, 0, one)      # pr = p
+        add(_AC_A_VX, z, x, 1, one)
+        add(_AC_A_VZ, z, x, 2, one)
+    else:
+        add(_A_SZZ, z, x, 0, one)       # pr = szz + sxx
+        add(_A_SXX, z, x, 0, one)
+        add(_A_VX, z, x, 1, one)
+        add(_A_VZ, z, x, 2, one)
+    if ett == "exx":                    # ett = vx[z,x] - vx[z,x-1]
         add(_A_VX, z, x, 3, one)
         add(_A_VX, z, x - 1, 3, -one)
-    elif cfg.das_channel == "ezz":      # ett = vz[z,x] - vz[z-1,x]
+    elif ett == "ezz":                  # ett = vz[z,x] - vz[z-1,x]
         add(_A_VZ, z, x, 3, one)
         add(_A_VZ, z - 1, x, 3, -one)
-    else:                               # w0 exx + w1 exz + w2 ezz
+    elif ett == "weighted":             # w0 exx + w1 exz + w2 ezz
         w = np.asarray(fs.weights, np.float64)
         idz, idx = 1.0 / cfg.dz, 1.0 / cfg.dx
         add(_A_VX, z, x, 3, w[:, 0] * idx - 0.5 * w[:, 1] * idz)
@@ -266,23 +281,25 @@ class FastPlan:
         self._source_tables = functools.lru_cache(maxsize=256)(
             self._upload_sources)
 
-    def receivers(self, device: torch.device):
+    def receivers(self, device: torch.device, acoustic: bool = False):
         """Point receivers' device tables: (rec_z, rec_x int32 (R,), rec_w
         float32 (R, 3) or None, the injection table of 6 tensors); None for
-        a RowSurvey."""
+        a RowSurvey.  acoustic: the tables of the acoustic kernels (no
+        weights, the acoustic injection table)."""
         if not isinstance(self.rs, FiberSurvey):
             return None
-        hit = self._receivers.get(device)
+        hit = self._receivers.get((device, acoustic))
         if hit is None:
             up = lambda a: torch.from_numpy(a).to(device)
             rs = self.rs
             rec_w = None
-            if self.cfg.das_channel == "weighted":
+            if self.cfg.das_channel == "weighted" and not acoustic:
                 rec_w = up(np.ascontiguousarray(rs.weights, np.float32))
             hit = (up(np.ascontiguousarray(rs.rec_z, np.int32)),
                    up(np.ascontiguousarray(rs.rec_x, np.int32)), rec_w,
-                   tuple(up(a) for a in _injection_table(self.cfg, rs)))
-            self._receivers[device] = hit
+                   tuple(up(a) for a in _injection_table(self.cfg, rs,
+                                                         acoustic)))
+            self._receivers[(device, acoustic)] = hit
         return hit
 
     def sources(self, device: torch.device, S: int, src_z, src_x, rxz):
@@ -338,10 +355,10 @@ def plan_fast_path(cfg: SimConfig, rec_z, rec_x, das_w=None
     return plan_for(cfg, make_fiber_survey(rec_z, rec_x, das_w))
 
 
-def plan_engine_name(plan: FastPlan) -> str:
+def plan_engine_name(plan: FastPlan, physics: str = "elastic") -> str:
     kind = ("receiver row" if isinstance(plan.rs, RowSurvey)
             else f"{plan.rs.n_rec} point receivers")
-    return f"CUDA kernels (elastic_fwd.cu + elastic_bwd.cu), {kind}"
+    return f"CUDA kernels ({physics}_fwd.cu + {physics}_bwd.cu), {kind}"
 
 
 def _check_tensor(name, t, shape, device):
@@ -355,12 +372,12 @@ def _check_tensor(name, t, shape, device):
         raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
 
 
-def _check_inputs(plan: FastPlan, lam, mu, rho, stf, src_z, src_x, rxz):
-    """Validate everything the kernel would otherwise read out of bounds;
-    returns the plan's (src_z, src_x, rxz) tensors on lam's device."""
+def _check_model(plan: FastPlan, planes, stf) -> int:
+    """The material planes ((name, tensor), ...) and the wavelets are what
+    the kernels take; returns the number of shots."""
     cfg = plan.cfg
-    device = lam.device
-    for name, t in (("lam", lam), ("mu", mu), ("rho", rho)):
+    device = planes[0][1].device
+    for name, t in planes:
         _check_tensor(name, t, (cfg.nz, cfg.nx), device)
     _check_tensor("stf", stf, None, device)
     if stf.ndim != 2 or stf.shape[1] != cfg.nt:
@@ -368,7 +385,14 @@ def _check_inputs(plan: FastPlan, lam, mu, rho, stf, src_z, src_x, rxz):
     S = stf.shape[0]
     if not 1 <= S <= 65535:
         raise ValueError(f"{S} shots: the kernel takes 1..65535")
-    return plan.sources(device, S, src_z, src_x, rxz)
+    return S
+
+
+def _check_inputs(plan: FastPlan, lam, mu, rho, stf, src_z, src_x, rxz):
+    """Validate everything the kernel would otherwise read out of bounds;
+    returns the plan's (src_z, src_x, rxz) tensors on lam's device."""
+    S = _check_model(plan, (("lam", lam), ("mu", mu), ("rho", rho)), stf)
+    return plan.sources(lam.device, S, src_z, src_x, rxz)
 
 
 def _check_residuals(plan: FastPlan, lam, stf, final, strips, d_data):

@@ -20,9 +20,10 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from sep2023_tpu_torch import acoustic as acoustic_mod
 from sep2023_tpu_torch import propagator
 from sep2023_tpu_torch.config import SimConfig, Survey
-from sep2023_tpu_torch.ops import cuda_engine
+from sep2023_tpu_torch.ops import cuda_acoustic, cuda_engine
 from sep2023_tpu_torch.ops import misfit as mf
 from sep2023_tpu_torch.propagator import ShotGeom
 
@@ -55,22 +56,26 @@ def default_shot_misfit(channels: Sequence[str] = ("ett",)):
                                      for i in range(o.shape[0])])
 
 
-def strip_bytes_per_shot(cfg: SimConfig, itemsize: int = 4) -> int:
+def strip_bytes_per_shot(cfg: SimConfig, acoustic: bool = False,
+                         itemsize: int = 4) -> int:
     """Boundary-strip bytes one shot's gradient holds in device memory: the
-    port's flat layout, (nt-1) steps x 5 fields x 2 L (nz + nx) values
-    (129 MB a shot at the reference 165x265, nt=1501, in float32).
-    itemsize: 8 for float64 runs."""
-    return ((cfg.nt - 1) * propagator.N_FIELDS * propagator.strip_len(cfg)
-            * itemsize)
+    port's flat layout, (nt-1) steps x 5 fields (3 acoustic ones) x
+    2 L (nz + nx) values (129 MB a shot at the reference 165x265, nt=1501,
+    in float32; 77 MB acoustic).  itemsize: 8 for float64 runs."""
+    n_fields = acoustic_mod.AC_N_FIELDS if acoustic else propagator.N_FIELDS
+    return (cfg.nt - 1) * n_fields * propagator.strip_len(cfg) * itemsize
 
 
-def state_bytes_per_shot(cfg: SimConfig, itemsize: int = 4) -> int:
+def state_bytes_per_shot(cfg: SimConfig, acoustic: bool = False,
+                         itemsize: int = 4) -> int:
     """Plane bytes one shot's gradient holds in device memory beside its
     strips: the forward's state, the backward's copy of the final fields,
     its work planes and the per-shot gradient planes (44 planes of nz x nx;
-    7.7 MB a shot at 165x265, 296 MB at 814x2064, in float32)."""
-    ce = cuda_engine
-    planes = (ce.N_STATE_PLANES + propagator.N_FIELDS + ce.N_WORK_PLANES
+    7.7 MB a shot at 165x265, 296 MB at 814x2064, in float32; 24 planes
+    acoustic)."""
+    ce = cuda_acoustic if acoustic else cuda_engine
+    n_fields = acoustic_mod.AC_N_FIELDS if acoustic else propagator.N_FIELDS
+    planes = (ce.N_STATE_PLANES + n_fields + ce.N_WORK_PLANES
               + ce.N_GRAD_PLANES)
     return planes * cfg.nz * cfg.nx * itemsize
 
@@ -88,17 +93,18 @@ def hbm_budget_bytes(device=None) -> int:
     return max(1 << 30, (total * 3) // 8)
 
 
-def auto_shot_chunk(cfg: SimConfig, n_shots: int, *,
+def auto_shot_chunk(cfg: SimConfig, n_shots: int, *, acoustic: bool = False,
                     budget_bytes: int | None = None, itemsize: int = 4,
                     device=None) -> int:
-    """Shots in flight for gradient evaluations: the largest chunk whose
-    strips and state planes fit the budget (`hbm_budget_bytes(device)` when
-    budget_bytes is None), or 0 (unchunked) when every shot fits."""
+    """Shots in flight for gradient evaluations (acoustic: for the acoustic
+    gradient and image): the largest chunk whose strips and state planes fit
+    the budget (`hbm_budget_bytes(device)` when budget_bytes is None), or 0
+    (unchunked) when every shot fits."""
     if budget_bytes is None:
         budget_bytes = hbm_budget_bytes(device)
     n_shots = max(1, n_shots)
-    per_shot = (strip_bytes_per_shot(cfg, itemsize)
-                + state_bytes_per_shot(cfg, itemsize))
+    per_shot = (strip_bytes_per_shot(cfg, acoustic, itemsize)
+                + state_bytes_per_shot(cfg, acoustic, itemsize))
     if per_shot * n_shots <= budget_bytes:
         return 0
     return max(1, min(n_shots, int(budget_bytes // per_shot)))

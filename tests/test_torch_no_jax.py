@@ -1,8 +1,9 @@
 """The port stands alone and never falls back.
 
-* Importing sep2023_tpu_torch (cli, api, the CUDA engine, the invert path's
-  modules) loads neither jax nor sep2023_tpu: the machine with the card has
-  no JAX.
+* Importing sep2023_tpu_torch (cli, api, the CUDA engines, the invert
+  path's modules, acoustic, imaging) loads neither jax nor sep2023_tpu: the
+  machine with the card has no JAX.  No module of the port names either in
+  an import statement.
 * forward_cuda_plan, backward_cuda_plan, reconstruct_cuda_plan,
   propagate_cuda_plan, make_cuda_misfit, ElasticPropagator.apply_gradient
   and `cli invert` on a device that is not the CPU build and launch the
@@ -24,7 +25,7 @@ import torch
 
 from sep2023_tpu_torch import api, cli, parallel
 from sep2023_tpu_torch.config import SimConfig, Survey
-from sep2023_tpu_torch.ops import _build, cuda_engine
+from sep2023_tpu_torch.ops import _build, cuda_acoustic, cuda_engine
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -53,7 +54,8 @@ def test_import_loads_no_jax():
         "sep2023_tpu_torch.convert, sep2023_tpu_torch.io, "
         "sep2023_tpu_torch.heads, sep2023_tpu_torch.optimize, "
         "sep2023_tpu_torch.ops.misfit, sep2023_tpu_torch.parallel, "
-        "sep2023_tpu_torch.testing\n"
+        "sep2023_tpu_torch.testing, sep2023_tpu_torch.acoustic, "
+        "sep2023_tpu_torch.imaging, sep2023_tpu_torch.ops.cuda_acoustic\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'sep2023_tpu', 'triton')]\n"
         "assert not bad, bad\n"
@@ -62,6 +64,46 @@ def test_import_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_no_module_imports_jax():
+    """Every module of the port, chip_smoke.py and the port's examples:
+    no import statement names jax or the JAX package."""
+    files = [*sorted((REPO / "sep2023_tpu_torch").rglob("*.py")),
+             REPO / "chip_smoke.py",
+             *sorted((REPO / "examples").glob("*_torch.py"))]
+    assert len(files) > 20
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|sep2023_tpu)(\.|\s|$)",
+                     re.MULTILINE)
+    for f in files:
+        assert not pat.search(f.read_text()), f.name
+
+
+def test_acoustic_entries_raise_when_build_fails(monkeypatch):
+    """The acoustic wrappers on a device that is not the CPU reach the
+    kernel build and no plain version."""
+    _broken_build(monkeypatch)
+    lam, _, rho, stf, sz, sx, _ = _inputs(device="meta")
+    meta = lambda *shape: torch.zeros(shape, device="meta")
+    S, n = 2, cuda_engine.propagator.strip_len(CFG)
+    final, strips = meta(3, S, CFG.nz, CFG.nx), meta(S, CFG.nt - 1, 3, n)
+    d = meta(S, 3, RS.n_rec, CFG.nt)
+    before = (cuda_acoustic.LAUNCHES_AC, cuda_acoustic.LAUNCHES_AC_BWD)
+    calls = (
+        lambda: cuda_acoustic.forward_cuda_acoustic_plan(
+            PLAN, lam, rho, stf, sz, sx, save_strips=True),
+        lambda: cuda_acoustic.backward_cuda_acoustic_plan(
+            PLAN, lam, rho, stf, sz, sx, final, strips, d),
+        lambda: cuda_acoustic.reconstruct_cuda_acoustic_plan(
+            PLAN, lam, rho, stf, sz, sx, final, strips),
+        lambda: cuda_acoustic.rtm_image_time_cuda_plan(
+            PLAN, lam, rho, stf, sz, sx, d),
+    )
+    for call in calls:
+        with pytest.raises(RuntimeError, match="simulated"):
+            call()
+    assert (cuda_acoustic.LAUNCHES_AC, cuda_acoustic.LAUNCHES_AC_BWD) == \
+        before
 
 
 def test_forward_cuda_raises_when_build_fails(monkeypatch):
@@ -153,6 +195,10 @@ def _broken_build(monkeypatch):
     for name in ("forward_plain", "forward_plain_strips", "backward_plain",
                  "reconstruct_plain"):
         monkeypatch.setattr(cuda_engine, name, no_plain)
+    for name in ("forward_plain_acoustic", "forward_plain_acoustic_strips",
+                 "backward_plain_acoustic", "reconstruct_plain_acoustic",
+                 "rtm_image_time_plain"):
+        monkeypatch.setattr(cuda_acoustic, name, no_plain)
     monkeypatch.setattr(cuda_engine.propagator, "propagate_shots", no_plain)
 
 
@@ -273,8 +319,9 @@ def test_backward_kernel_has_no_atomics():
     operation in the code of any kernel source (comments aside)."""
     names = sorted(p.name for p in (REPO / "sep2023_tpu_torch" / "csrc")
                    .iterdir())
-    assert names == ["elastic_bwd.cu", "elastic_common.cuh",
-                     "elastic_fwd.cu"]
+    assert names == ["acoustic_bwd.cu", "acoustic_common.cuh",
+                     "acoustic_fwd.cu", "elastic_bwd.cu",
+                     "elastic_common.cuh", "elastic_fwd.cu"]
     for name in names:
         src = (REPO / "sep2023_tpu_torch" / "csrc" / name).read_text()
         code = re.sub(r"//[^\n]*", "", src)
