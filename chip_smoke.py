@@ -3,7 +3,8 @@ from csrc/, holds each against its plain PyTorch version on the card
 (the forward, the forward with boundary strips, the boundary-saving
 adjoint, its reconstruction, the adjoint dot product; receiver rows and
 point receivers; the reference workload and the large grids 560x720 and
-814x2064), drives the main paths through them (`forward` and `invert` at
+814x2064; the tile-edge cases of TILE_EDGE_CASES, phase 20), drives the
+main paths through them (`forward` and `invert` at
 the reference workload, `invert` at 560x720, a chunked Marmousi-scale
 gradient at 814x2064, the curved-fiber inversion of
 examples/das_fwi_torch.py), checks the ElasticPropagator API, and prints
@@ -27,6 +28,7 @@ the acoustic gradient of the JAX package's bench at the reference workload
 and at the two streamed shapes, and `rtm --physics elastic`.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases 3,7,8,9,10,20   # those phases only
 
 Needs one CUDA device and nvcc; exits nonzero, printing no result, without
 them.  Imports neither jax nor sep2023_tpu.  The last line of standard
@@ -35,6 +37,8 @@ record of every kernel (launches on its main path, error, times, bound).
 """
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import os
 import re
@@ -56,13 +60,14 @@ from sep2023_tpu_torch.ops import signal as sg
 from sep2023_tpu_torch.ops.misfit import l2_misfit
 from sep2023_tpu_torch.testing import (AC_CASES, AC_INTERIOR, DOT_TOL,
                                        FIBER_CASES, GRAD_TOL, RECON_RATIO,
-                                       ROW_CASES, ac_perturbed_cotangent,
-                                       ac_problem, ac_row_problem,
-                                       acoustic_args, adjoint_gap,
-                                       fiber_problem, grad_errors,
-                                       perturbed_cotangent,
+                                       ROW_CASES, TILE_EDGE_CASES,
+                                       TILE_EDGE_SEED,
+                                       ac_perturbed_cotangent, ac_problem,
+                                       ac_row_problem, acoustic_args,
+                                       adjoint_gap, fiber_problem,
+                                       grad_errors, perturbed_cotangent,
                                        reconstruction_residual, row_problem,
-                                       strip_errors)
+                                       strip_errors, tile_edge_problem)
 from sep2023_tpu_torch.testing import max_rel as rel_err
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -221,21 +226,38 @@ def phase_environment():
           f"{torch.cuda.get_device_name(0)}; nvcc: {nvcc[-1]}")
 
 
+def tile_plan():
+    """The fused elastic kernels' tile plan as the library has it:
+    (tile z, tile x, threads a block, forward and backward shared memory a
+    block in bytes)."""
+    plan = (ctypes.c_int * 5)()
+    _build.load().elastic_tile_plan(plan)
+    return tuple(plan)
+
+
 def phase_build():
     t0 = time.perf_counter()
     path = _build.build()
     _build.load()
     print(f"[2 build] {time.perf_counter() - t0:.2f} s -> {path}")
-    # ptxas -v: "Function properties for <mangled name>", then "Used N
+    tz, tx, threads, fwd_smem, bwd_smem = tile_plan()
+    print(f"[2 build] fused elastic kernels: {tz}x{tx} tiles, {threads} "
+          f"threads a block, shared memory a block {fwd_smem} B (forward, "
+          f"static) and {bwd_smem} B (backward, dynamic)")
+    # ptxas -v: "Function properties for <mangled name>", then "N bytes
+    # stack frame, N bytes spill stores, N bytes spill loads" and "Used N
     # registers, ..." for that kernel
-    name = None
+    name, spills = None, ""
     for line in _build.build_log(path).read_text().splitlines():
         m = re.search(r"Function properties for .*?(?<=\d)([a-z_]+_kernel)E",
                       line)
         if m:
-            name = m.group(1)
+            name, spills = m.group(1), ""
+        elif "spill stores" in line and name:
+            spills = line.split(":", 1)[-1].strip()
         elif "Used" in line and name:
-            print(f"[2 build] {name}: {line.split(':', 1)[1].strip()}")
+            print(f"[2 build] {name}: {line.split(':', 1)[1].strip()}; "
+                  f"{spills}")
             name = None
 
 
@@ -270,13 +292,16 @@ def phase_kernel_vs_plain(dev):
     return abs_err, kernel_ms, plain_ms, max(rel)
 
 
-def phase_main_path(plain_ms):
+def phase_main_path(cfg, plain_ms):
     with tempfile.TemporaryDirectory() as d:
-        cuda_engine.LAUNCHES = 0
+        reset_counts()
         data = cli.main(["forward", "--data-dir", d])
-        launches = cuda_engine.LAUNCHES
-        check(launches >= 3 * 1500,
-              f"forward launched the kernel {launches} times, < 4500")
+        counts, plain_calls = read_counts()
+        launches = counts["LAUNCHES"]
+        # the command's warm-up forward and its timed one
+        check_counts("[4 main path] forward", counts,
+                     {"LAUNCHES": 2 * cuda_engine.launches_forward(cfg)},
+                     plain_calls)
         check(data.device.type == "cuda", "forward did not run on the card")
         out = data.cpu().numpy()
         check(out.shape == (19, 4, 181, 1501), f"data shape {out.shape}")
@@ -451,10 +476,12 @@ def phase_reconstruction(dev):
           f"{plain:.6e} (kernel <= {RECON_RATIO:g} x plain)")
 
 
-def _invert(label, argv, S, steps, niter):
+def _invert(label, argv, cfg, rs, S, niter):
     """`invert` through cli.main with the counts set to 0 just before and
     read just after: the loss decreases, the launch counts are exact, no
-    plain version ran.  Returns (counts, summary, loss values)."""
+    plain version ran.  cfg, rs, S: the run's grid, survey and shots.
+    Returns
+    (counts, summary, evaluations, chunks)."""
     with tempfile.TemporaryDirectory() as d:
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -464,29 +491,31 @@ def _invert(label, argv, S, steps, niter):
         hist = np.loadtxt(os.path.join(d, "Results", "loss.txt"), ndmin=2)
     n = out["n_evals"]
     chunks = len(parallel._chunks(S, out["shot_chunk"]))
+    fwd = cuda_engine.launches_forward(cfg)
+    bwd = cuda_engine.launches_backward(cfg, rs)
     # the twin data: one forward a chunk; an evaluation: a forward with
     # strips and a backward a chunk
-    want = {"LAUNCHES": 3 * steps * chunks * (1 + n),
-            "LAUNCHES_STRIPS": 3 * steps * chunks * n,
-            "LAUNCHES_BWD": (2 * steps + 1) * chunks * n}
+    want = {"LAUNCHES": fwd * chunks * (1 + n),
+            "LAUNCHES_STRIPS": fwd * chunks * n,
+            "LAUNCHES_BWD": bwd * chunks * n}
     check_counts(label, counts, want, plain_calls)
     loss = hist[:, 1]
     check(len(loss) == niter and np.isfinite(loss).all()
           and (np.diff(loss) < 0).all(), f"loss.txt not decreasing: {loss}")
     print(f"{label} loss.txt {loss.tolist()} decreasing; {n} gradient "
           f"evaluations in {chunks} shot chunk(s) of {S} shots; launches = "
-          f"forward 3 x {steps} x {chunks} x (1 + {n}) = "
+          f"forward {fwd} x {chunks} x (1 + {n}) = "
           f"{counts['LAUNCHES']} (with strips {counts['LAUNCHES_STRIPS']}),"
-          f" backward (2 x {steps} + 1) x {chunks} x {n} = "
+          f" backward {bwd} x {chunks} x {n} = "
           f"{counts['LAUNCHES_BWD']}, as expected; plain calls "
           f"{plain_calls}")
     return counts, out, n, chunks
 
 
-def phase_invert_main_path():
+def phase_invert_main_path(cfg, rs):
     """`invert --niter 3` at the CLI defaults (the reference workload)."""
-    counts, out, n, _ = _invert("[11 main path] invert --niter 3:", [], 19,
-                                1500, 3)
+    counts, out, n, _ = _invert("[11 main path] invert --niter 3:", [], cfg,
+                                rs, 19, 3)
     per_eval = out["seconds"] / n
     cells = 165 * 265 * 1500 * 19
     print(f"[11 main path] {out['seconds']:.3f} s in L-BFGS-B, "
@@ -495,48 +524,81 @@ def phase_invert_main_path():
     return counts
 
 
-def _fiber_case(label, cfg, rs, inputs):
-    """Point receivers: the forward, the forward with strips and the
-    backward against their plain versions, a second backward bitwise, the
-    adjoint dot product, and the launch counters of each call."""
+def _kernel_case(label, cfg, rs, inputs, seed=7):
+    """The forward, the forward with strips and the backward against their
+    plain versions on one problem: data, strips and final fields bitwise
+    equal, gradients within GRAD_TOL, a second backward bitwise, the
+    reconstruction residual equal to the plain f32 one, the adjoint dot
+    product (its random pair drawn from `seed`), and the launch counters of
+    each call.  Returns its printed summary."""
     steps = cfg.nt - 1
+    fiber = isinstance(rs, cuda_engine.FiberSurvey)
+    fwd = cuda_engine.launches_forward(cfg)
+    bwd = cuda_engine.launches_backward(cfg, rs)
     plan = cuda_engine.plan_for(cfg, rs)
     reset_counts()
     out = cuda_engine.forward_cuda_plan(plan, *inputs, save_strips=True)
     data = cuda_engine.forward_cuda_plan(plan, *inputs)
     counts, _ = read_counts()
-    check(counts_are(counts, {"LAUNCHES": 6 * steps,
-                              "LAUNCHES_STRIPS": 3 * steps,
-                              "LAUNCHES_FIBER": 2 * steps}),
+    check(counts_are(counts, {"LAUNCHES": 2 * fwd, "LAUNCHES_STRIPS": fwd,
+                              "LAUNCHES_FIBER": 2 * steps if fiber else 0}),
           f"{label}: forward launch counters {counts}")
     check(torch.equal(data, out[0]), f"{label}: strip saving changed the data")
     ref = cuda_engine.forward_plain_strips(cfg, rs, *inputs)
     d, s, f = strip_errors(out, ref)
-    check(max(d + s + f) < TOL, f"{label}: kernel vs plain {d} {s} {f}")
+    check(all(torch.equal(a, b) for a, b in zip(out, ref)),
+          f"{label}: kernel vs plain not bitwise: {d} {s} {f}")
     ett = float(ref[0][:, 3].abs().max())
     check(ett > 1e-3, f"{label}: no arrivals at the receivers ({ett})")
-    del out, ref, data
+    _, strips, final = out
+    kern = reconstruction_residual(cfg, cuda_engine.reconstruct_cuda_plan(
+        plan, *inputs, final, strips), data)
+    plain = reconstruction_residual(cfg, cuda_engine.reconstruct_plain(
+        cfg, rs, *inputs, final, strips), data)
+    check(kern == plain, f"{label}: reconstruction residual {kern}, plain "
+          f"f32 {plain}")
+    del out, ref, data, strips, final
     res, g, g_ref, _ = _backward_pair(cfg, rs, inputs)
     err = grad_errors(g, g_ref, cfg)
     check(max(err) < GRAD_TOL, f"{label}: backward vs plain {err}")
     reset_counts()
     again = cuda_engine.backward_cuda_plan(plan, *res)
     counts, _ = read_counts()
-    check(counts["LAUNCHES_BWD"] == 3 * steps + 1
-          and counts["LAUNCHES_BWD_FIBER"] == steps,
+    check(counts_are(counts, {"LAUNCHES_BWD": bwd,
+                              "LAUNCHES_BWD_FIBER": steps if fiber else 0}),
           f"{label}: backward launch counters {counts}")
     check(all(torch.equal(a, b) for a, b in zip(g, again)),
           f"{label}: a second backward run gave other bits")
-    _, _, gap = adjoint_gap(cfg, rs, inputs)
+    _, _, gap = adjoint_gap(cfg, rs, inputs, seed)
     check(gap <= DOT_TOL, f"{label}: adjoint gap {gap} > {DOT_TOL}")
-    print(f"[12 fiber vs plain] {label} ({cfg.nz}x{cfg.nx}, nt={cfg.nt}, "
-          f"{rs.n_rec} points, {cfg.das_channel}): max rel err data per "
-          f"channel {d}, strips {max(s)}, final fields {max(f)} < {TOL}; "
-          f"(d_lam, d_mu, d_rho, d_stf) {err} < {GRAD_TOL}; adjoint gap "
-          f"{gap:.3e} <= {DOT_TOL}; a second backward bitwise equal; "
-          f"launches a forward 3 x {steps} (record_points {steps}), a "
-          f"backward 3 x {steps} + 1 (inject_points {steps}); max |ett| "
-          f"{ett:.6e}")
+    return (f"({cfg.nz}x{cfg.nx}, npml {cfg.npml}, nt={cfg.nt}, "
+            f"{inputs[3].shape[0]} shots, {type(rs).__name__} of "
+            f"{rs.n_rec}, {cfg.das_channel}): data, strips and final fields "
+            f"bitwise equal to plain (max rel err {max(d + s + f)}); "
+            f"(d_lam, d_mu, d_rho, d_stf) {err} < {GRAD_TOL}; a second "
+            f"backward bitwise equal; reconstruction residual / peak |pr| "
+            f"{kern:.6e}, equal to plain f32; adjoint gap {gap:.3e} <= "
+            f"{DOT_TOL}; launches a forward {fwd}"
+            f"{f' (record_points {steps})' if fiber else ''}, a backward "
+            f"{bwd}{f' (inject_points {steps})' if fiber else ''}; max |ett| "
+            f"{ett:.6e}")
+
+
+def _fiber_case(label, cfg, rs, inputs):
+    print(f"[12 fiber vs plain] {label} "
+          f"{_kernel_case(label, cfg, rs, inputs)}")
+
+
+def phase_tile_edges(dev):
+    """The fused kernels where their tile edges can bite (TILE_EDGE_CASES):
+    each case through `_kernel_case`."""
+    tz, tx = tile_plan()[:2]
+    for name in TILE_EDGE_CASES:
+        cfg, rs, inputs = tile_edge_problem(name, device=dev)
+        tiles = (-(-cfg.nz // tz), -(-cfg.nx // tx))
+        print(f"[20 tile edges] {name} ({tz}x{tx} tiles, {tiles[0]}x"
+              f"{tiles[1]} a shot) "
+              f"{_kernel_case(name, cfg, rs, inputs, TILE_EDGE_SEED)}")
 
 
 def das_fwi_problem(dev):
@@ -813,13 +875,13 @@ def phase_invert_large(dev):
     in flight against its first and last shot run alone."""
     grid = dict(nz=496, nx=656, dz=10.0, dx=10.0, nt=2001, dt=0.001)
     argv = [a for k, v in grid.items() for a in (f"--{k}", f"{v:g}")]
+    cfg, rs, inputs = reference_problem(dev, **grid)
     counts, out, n, chunks = _invert(
         "[14 main path, large grid] invert at 560x720, nt=2001, --niter 2:",
-        argv, 64, 2000, 2)
+        argv, cfg, rs, 64, 2)
     per_eval = out["seconds"] / n
     cells = 560 * 720 * 2000 * 64
     peak = torch.cuda.max_memory_allocated()
-    cfg, rs, inputs = reference_problem(dev, **grid)
     in_flight = out["shot_chunk"] or 64
     assumed = assumed_bytes(cfg, in_flight)
     print(f"[14 main path, large grid] {out['seconds']:.3f} s in L-BFGS-B, "
@@ -901,9 +963,12 @@ def phase_marmousi_chunked(dev, nz=750, nx=2000, nt=2001, S=8, chunk=2):
     seconds = time.perf_counter() - t0
     counts, plain_calls = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    want = {"LAUNCHES": 3 * steps * n_chunks * 2,
-            "LAUNCHES_STRIPS": 3 * steps * n_chunks,
-            "LAUNCHES_BWD": (2 * steps + 1) * n_chunks}
+    rs = parallel._cuda_plan(cfg, survey)[0].rs
+    fwd_n = cuda_engine.launches_forward(cfg)
+    bwd_n = cuda_engine.launches_backward(cfg, rs)
+    want = {"LAUNCHES": fwd_n * n_chunks * 2,
+            "LAUNCHES_STRIPS": fwd_n * n_chunks,
+            "LAUNCHES_BWD": bwd_n * n_chunks}
     check_counts("[15 main path, Marmousi scale]", counts, want, plain_calls)
     gmax = [float(g.abs().max()) for g in grads]
     val = val.detach()
@@ -918,9 +983,9 @@ def phase_marmousi_chunked(dev, nz=750, nx=2000, nt=2001, S=8, chunk=2):
           f"shots (the example runs 24; cut for time) in {n_chunks} chunks of "
           f"{chunk}, {survey.n_rec} receivers on row {rec_row}: misfit "
           f"{float(val):.6e}, max |gradient| (lam, mu, rho) {gmax}; launches "
-          f"= forward 3 x {steps} x {n_chunks} x 2 = {counts['LAUNCHES']} "
-          f"(with strips {counts['LAUNCHES_STRIPS']}), backward (2 x {steps} "
-          f"+ 1) x {n_chunks} = {counts['LAUNCHES_BWD']}, as expected; plain "
+          f"= forward {fwd_n} x {n_chunks} x 2 = {counts['LAUNCHES']} "
+          f"(with strips {counts['LAUNCHES_STRIPS']}), backward {bwd_n} x "
+          f"{n_chunks} = {counts['LAUNCHES_BWD']}, as expected; plain "
           f"calls {plain_calls}; {seconds:.3f} s per value and gradient, "
           f"{cells / seconds / 1e9:.2f} GCell/s gradient; peak memory "
           f"{peak / 1e9:.3f} GB, auto_shot_chunk assumes {assumed / 1e9:.3f} "
@@ -928,7 +993,6 @@ def phase_marmousi_chunked(dev, nz=750, nx=2000, nt=2001, S=8, chunk=2):
     del obs, grads, params
     torch.cuda.empty_cache()
     n = cfg.npml
-    rs = parallel._cuda_plan(cfg, survey)[0].rs
     numbers = hold_against_plain(
         f"[15 large grid vs plain] the Marmousi-scale survey, its first "
         f"chunk of {chunk}", cfg, rs,
@@ -938,10 +1002,12 @@ def phase_marmousi_chunked(dev, nz=750, nx=2000, nt=2001, S=8, chunk=2):
     return counts, numbers
 
 
-def phase_fiber_main_path():
+def phase_fiber_main_path(dev):
     """examples/das_fwi_torch.py's main with maxiter=3 on the card."""
-    cfg = das_fwi_torch.acquisition()[0]
+    cfg, rs, _ = das_fwi_problem(dev)
     steps = cfg.nt - 1
+    fwd = cuda_engine.launches_forward(cfg)
+    bwd = cuda_engine.launches_backward(cfg, rs)
     with tempfile.TemporaryDirectory() as d:
         reset_counts()
         t0 = time.perf_counter()
@@ -951,18 +1017,18 @@ def phase_fiber_main_path():
         counts, plain_calls = read_counts()
     # the twin data: one forward; an evaluation: a forward with strips and
     # a backward, each with one point launch a step
-    want = {"LAUNCHES": 3 * steps * (1 + n), "LAUNCHES_STRIPS": 3 * steps * n,
+    want = {"LAUNCHES": fwd * (1 + n), "LAUNCHES_STRIPS": fwd * n,
             "LAUNCHES_FIBER": steps * (1 + n),
-            "LAUNCHES_BWD": (3 * steps + 1) * n,
+            "LAUNCHES_BWD": bwd * n,
             "LAUNCHES_BWD_FIBER": steps * n}
     check_counts("[16 main path, fiber]", counts, want, plain_calls)
     check(np.isfinite(last) and last < first,
           f"the gauge misfit did not decrease: {first} -> {last}")
     print(f"[16 main path, fiber] das_fwi_torch.main(maxiter=3): gauge "
           f"misfit {first:.6e} -> {last:.6e}; {n} evaluations; launches = "
-          f"forward 3 x {steps} x (1 + {n}) = {counts['LAUNCHES']} (with "
+          f"forward {fwd} x (1 + {n}) = {counts['LAUNCHES']} (with "
           f"strips {counts['LAUNCHES_STRIPS']}, record_points "
-          f"{counts['LAUNCHES_FIBER']}), backward (3 x {steps} + 1) x {n} = "
+          f"{counts['LAUNCHES_FIBER']}), backward {bwd} x {n} = "
           f"{counts['LAUNCHES_BWD']} (inject_points "
           f"{counts['LAUNCHES_BWD_FIBER']}), as expected; plain calls "
           f"{plain_calls}; {seconds:.3f} s in all")
@@ -1336,11 +1402,13 @@ def phase_acoustic_main_paths(dev, streamed):
 
     # (e) rtm --physics elastic: K1, K1 with strips and K2 with cotangents
     # on pr, vx and vz
+    cfg, rs, _ = reference_problem(dev, nt=1001)
+    fwd = cuda_engine.launches_forward(cfg)
     r["rtm_elastic"] = _rtm(
         "[19e main path] rtm --physics elastic --nt 1001:",
         ["--physics", "elastic", "--nt", "1001"], {
-            "LAUNCHES": 2 * 3 * 1000, "LAUNCHES_STRIPS": 3 * 1000,
-            "LAUNCHES_BWD": 2 * 1000 + 1}, 67)
+            "LAUNCHES": 2 * fwd, "LAUNCHES_STRIPS": fwd,
+            "LAUNCHES_BWD": cuda_engine.launches_backward(cfg, rs)}, 67)
 
     # (f) the same differentiable propagation at the streamed pair's shapes
     # (propagate_pallas_acoustic_auto's streamed branch on the TPU)
@@ -1467,21 +1535,21 @@ def kernel_record(results):
                 "library_ms": None}
 
     kernels = [
-        entry("elastic_forward (stress, velocity, record)", fwd_src,
+        entry("elastic_forward (fused step, record)", fwd_src,
               fused + "875", r[4],
               dict(max_abs_err=abs_err, max_rel_err=rel_err, ms=kernel_ms,
                    plain_ms=plain_ms, bound_ms=k1_bound, bound_by=k1_by)),
-        entry("elastic_forward with boundary strips (stress, velocity, "
-              "record)", fwd_src, fused + "875", r[11]["LAUNCHES_STRIPS"],
+        entry("elastic_forward with boundary strips (fused step, record)",
+              fwd_src, fused + "875", r[11]["LAUNCHES_STRIPS"],
               r[7]),
-        entry("elastic_backward (velocity, stress, shot sum)", bwd_src,
+        entry("elastic_backward (fused reverse step, shot sum)", bwd_src,
               fused + "1186", r[11]["LAUNCHES_BWD"], r[8]),
         entry("elastic_forward with point receivers and boundary strips "
-              "(stress, velocity, record_points), the acquisition of "
+              "(fused step, record_points), the acquisition of "
               "examples/das_fwi_torch.py", fwd_src, fused + "875",
               r[16]["LAUNCHES_STRIPS"], r[12][0]),
         entry("elastic_backward with point receivers (inject_points, "
-              "velocity, stress, shot sum), the acquisition of "
+              "fused reverse step, shot sum), the acquisition of "
               "examples/das_fwi_torch.py", bwd_src, fused + "1186",
               r[16]["LAUNCHES_BWD"], r[12][1]),
     ]
@@ -1533,7 +1601,14 @@ def kernel_record(results):
     return {"kernels": kernels}
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="Smoke test of sep2023_tpu_torch "
+                                 "on one NVIDIA GPU.")
+    ap.add_argument("--phases", default="",
+                    help="comma-separated phase numbers to run (1 and 2 "
+                    "always run); the default runs every phase and prints "
+                    "the kernels line and the result line")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke needs an NVIDIA GPU",
               file=sys.stderr)
@@ -1543,32 +1618,41 @@ def main():
     phase_environment()
     phase_build()
     results = {"reference": reference_problem(dev)}
+    ref_cfg, ref_rs, _ = results["reference"]
     phases = [
         (3, lambda: phase_kernel_vs_plain(dev)),
-        (4, lambda: phase_main_path(results[3][2])),
+        (4, lambda: phase_main_path(ref_cfg, results[3][2])),
         (5, lambda: phase_api(dev)),
         (7, lambda: phase_strips_vs_plain(dev)),
         (8, lambda: phase_backward_vs_plain(dev)),
         (9, lambda: phase_adjoint_dot(dev)),
         (10, lambda: phase_reconstruction(dev)),
-        (11, phase_invert_main_path),
+        (20, lambda: phase_tile_edges(dev)),
+        (11, lambda: phase_invert_main_path(ref_cfg, ref_rs)),
         (12, lambda: phase_fiber_vs_plain(dev)),
         (13, lambda: phase_large_vs_plain(dev)),
         (14, lambda: phase_invert_large(dev)),
         (15, lambda: phase_marmousi_chunked(dev)),
-        (16, phase_fiber_main_path),
+        (16, lambda: phase_fiber_main_path(dev)),
         (17, lambda: phase_acoustic_vs_plain(dev)),
         (18, lambda: phase_acoustic_large(dev)),
         (19, lambda: phase_acoustic_main_paths(dev, results[18])),
         (6, lambda: phase_profile(dev)),
     ]
+    only = {int(k) for k in args.phases.split(",") if k.strip()}
     for number, run in phases:
+        if only and number not in only:
+            continue
         t0 = time.perf_counter()
         results[number] = run()
         torch.cuda.synchronize()
         print(f"[{number}] phase took {time.perf_counter() - t0:.1f} s "
               f"({time.perf_counter() - t_start:.1f} s since the start)",
               flush=True)
+    if only:
+        print(f"phases {sorted(only)} passed; no kernels line or result "
+              "line for a partial run")
+        return
     print(json.dumps(kernel_record(results)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

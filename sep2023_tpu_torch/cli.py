@@ -200,6 +200,17 @@ def _reject_unported(args):
                 f"invert {flag} is not ported yet (ROADMAP {item})")
 
 
+def shot_weights(survey, *, device, dtype):
+    """The per-shot misfit factors of `invert`: a shot's src_weight
+    multiplies its residual (utilities.cu:838), so the misfit scales with
+    its square (sep2023_tpu/cli.py:411-417); ones when the survey has no
+    weights."""
+    if survey.src_weights is None:
+        return torch.ones(survey.n_shots, device=device, dtype=dtype)
+    return torch.as_tensor(np.asarray(survey.src_weights)).to(
+        device, dtype) ** 2
+
+
 def cmd_invert(args):
     """Twin-experiment FWI in the default configuration: observed data from
     the true model, then scipy L-BFGS-B from the smoothed initial model,
@@ -288,7 +299,7 @@ def cmd_invert(args):
     bad = [c for c in args.channels if c not in CHANNELS]
     if bad:
         raise SystemExit(f"unknown channel(s) {bad}; choose from {CHANNELS}")
-    weights = torch.ones(survey.n_shots, device=device, dtype=dtype)
+    weights = shot_weights(survey, device=device, dtype=dtype)
     data_loss = build_stage_loss(cfg, survey, geoms, use_kernels=use_kernels,
                                  shot_chunk=args.shot_chunk,
                                  channels=args.channels)

@@ -108,12 +108,8 @@ struct StressInc {
 // (lp2m e_zz + lam e_xx) dt, (lam e_zz + lp2m e_xx) dt, mu (e_xz + e_zx) dt.
 __device__ __forceinline__ StressInc stress_increment(float e_zz, float e_xx,
                                                       float e_xz, float e_zx,
-                                                      const float* mats,
-                                                      size_t plane_n,
-                                                      size_t c, float dt) {
-  const float lam = mats[LAM * plane_n + c];
-  const float lp2m = mats[LP2M * plane_n + c];
-  const float mu = mats[AVE_MU * plane_n + c];
+                                                      float lam, float lp2m,
+                                                      float mu, float dt) {
   StressInc inc;
   inc.zz = __fmul_rn(__fadd_rn(__fmul_rn(lp2m, e_zz), __fmul_rn(lam, e_xx)),
                      dt);
@@ -218,6 +214,151 @@ __device__ __forceinline__ float cpml_deriv_adj(float ge, float ik, float a,
 __device__ __forceinline__ bool in_update_mask(int z, int x, int nz,
                                                int nx) {
   return z >= 2 && z <= nz - 3 && x >= 2 && x <= nx - 3;
+}
+
+// ---------------------------------------------------------------------------
+// Tiles in shared memory, for the fused step kernels of elastic_fwd.cu and
+// elastic_bwd.cu.  A block owns a kTileZ x kTileX tile of one shot and runs
+// kTileThreads threads.
+// ---------------------------------------------------------------------------
+
+constexpr int kTileZ = 16;
+constexpr int kTileX = 32;
+constexpr int kTileThreads = 256;
+// The tile with a 4-cell halo (what a step reads at neighbours) and with a
+// 2-cell halo (what the first phase of a step computes for the second), and
+// their cells.
+constexpr int kHalo4Z = kTileZ + 8, kHalo4X = kTileX + 8;
+constexpr int kHalo2Z = kTileZ + 4, kHalo2X = kTileX + 4;
+constexpr int kH4 = kHalo4Z * kHalo4X, kH2 = kHalo2Z * kHalo2X;
+constexpr int kT = kTileZ * kTileX;
+// Shared memory of the fused step kernels in floats: every value a step
+// reads is copied in at the top of the block (the layouts are in
+// elastic_fwd.cu and elastic_bwd.cu).  The forward: vz, vx with the 4-cell
+// halo; the stresses, 3 material planes and 4 CPML memories with the 2-cell
+// halo; 2 buoyancies and 4 memories on the tile.  The backward: the
+// stresses and D1..D4 with the 4-cell halo; the cotangents of vz, vx, the
+// velocities, 2 buoyancies and 4 memories with the 2-cell halo; the
+// stresses' cotangents, 3 material planes, 4 memories and 5 gradients on
+// the tile.
+constexpr int kFwdShared = 2 * kH4 + 10 * kH2 + 6 * kT;
+constexpr int kBwdShared = 7 * kH4 + 10 * kH2 + 15 * kT;
+// The forward's is static (48 KiB at most a block); the backward's is set
+// per launch as dynamic shared memory, two blocks of it an SM (228 KiB, 1
+// KiB of it reserved a block).
+static_assert(kFwdShared * sizeof(float) <= 48 * 1024,
+              "static shared memory of fwd_step_kernel");
+static_assert(2 * (kBwdShared * sizeof(float) + 1024) <= 228 * 1024,
+              "two blocks of bwd_step_kernel an SM");
+
+// The stencils and transposes above on a tile held in shared memory with
+// row pitch W, at flat index i: the same operands in the same order, so the
+// same float.  A cell of the tile that lies outside the grid holds 0, the
+// edge rule of at().
+template <int W>
+__device__ __forceinline__ float tile_dz_minus(const float* t, int i) {
+  return stencil(t[i], t[i - W], t[i + W], t[i - 2 * W]);
+}
+
+template <int W>
+__device__ __forceinline__ float tile_dz_plus(const float* t, int i) {
+  return stencil(t[i + W], t[i], t[i + 2 * W], t[i - W]);
+}
+
+template <int W>
+__device__ __forceinline__ float tile_dx_minus(const float* t, int i) {
+  return stencil(t[i], t[i - 1], t[i + 1], t[i - 2]);
+}
+
+template <int W>
+__device__ __forceinline__ float tile_dx_plus(const float* t, int i) {
+  return stencil(t[i + 1], t[i], t[i + 2], t[i - 1]);
+}
+
+template <int W>
+__device__ __forceinline__ float tile_dz_minus_t(const float* g, int i) {
+  return stencil(g[i], g[i + W], g[i - W], g[i + 2 * W]);
+}
+
+template <int W>
+__device__ __forceinline__ float tile_dz_plus_t(const float* g, int i) {
+  return stencil(g[i - W], g[i], g[i - 2 * W], g[i + W]);
+}
+
+template <int W>
+__device__ __forceinline__ float tile_dx_minus_t(const float* g, int i) {
+  return stencil(g[i], g[i + 1], g[i - 1], g[i + 2]);
+}
+
+template <int W>
+__device__ __forceinline__ float tile_dx_plus_t(const float* g, int i) {
+  return stencil(g[i - 1], g[i], g[i - 2], g[i + 1]);
+}
+
+// One f32 from device memory into shared memory with cp.async; when `on`
+// is false nothing is read (src-size 0) and the word is filled with 0.
+// `src` must be a valid address either way.
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
+                                             bool on) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(on ? 4 : 0) : "memory");
+}
+
+// Close this thread's group of cp.async copies issued since the last one.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight; a
+// __syncthreads() after it makes every thread's copies visible.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// The CPML band of one axis: the indices where the profile's a or a_h is
+// not 0, [0, lo) and [hi, n).  Inside [lo, hi) a = 0 exactly, so the memory
+// psi <- b psi + a d stays 0 there and the derivative is d ik.  The
+// memories live in band storage: index i of the band is row (column) i for
+// i < lo and i - (hi - lo) for i >= hi.  ops/cuda_engine.cpml_bands takes
+// lo and hi from the profiles the kernels read.
+struct Band {
+  int lo, hi;
+};
+
+__device__ __forceinline__ bool in_band(const Band& b, int i) {
+  return i < b.lo || i >= b.hi;
+}
+
+__device__ __forceinline__ int band_index(const Band& b, int i) {
+  return i < b.lo ? i : i - (b.hi - b.lo);
+}
+
+__host__ __device__ inline int band_size(const Band& b, int n) {
+  return n - (b.hi - b.lo);
+}
+
+// cpml_deriv with the memory read from one buffer and written to another
+// (the fused forward keeps the stress phase's memories twice): the same
+// operations in the same order.
+__device__ __forceinline__ float cpml_deriv_to(float d, float ik, float a,
+                                               float b, float psi_in,
+                                               float* psi_out) {
+  const float p = __fadd_rn(__fmul_rn(b, psi_in), __fmul_rn(a, d));
+  *psi_out = p;
+  return __fadd_rn(__fmul_rn(d, ik), p);
+}
+
+// cpml_deriv_adj with the carried cotangent read from one buffer and
+// written to another.
+__device__ __forceinline__ float cpml_deriv_adj_to(float ge, float ik,
+                                                   float a, float b,
+                                                   float psi_bar_in,
+                                                   float* psi_bar_out) {
+  const float q = psi_bar_in + ge;
+  *psi_bar_out = b * q;
+  return ge * ik + a * q;
 }
 
 }  // namespace elastic

@@ -102,10 +102,12 @@ def load() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.elastic_forward.argtypes = [P] * 13 + [I] * 10 + [F] * 4 + [P]
+        lib.elastic_forward.argtypes = [P] * 14 + [I] * 14 + [F] * 4 + [P]
         lib.elastic_forward.restype = I
-        lib.elastic_backward.argtypes = [P] * 20 + [I] * 11 + [F, F, P]
+        lib.elastic_backward.argtypes = [P] * 21 + [I] * 15 + [F, F, P]
         lib.elastic_backward.restype = I
+        lib.elastic_tile_plan.argtypes = [P]
+        lib.elastic_tile_plan.restype = None
         lib.acoustic_forward.argtypes = [P] * 11 + [I] * 9 + [F, F, P]
         lib.acoustic_forward.restype = I
         lib.acoustic_backward.argtypes = [P] * 20 + [I] * 10 + [F, F, P]

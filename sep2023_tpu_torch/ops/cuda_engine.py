@@ -24,6 +24,11 @@ strips are (S, nt-1, 5, strip_len) in the flat layout of
 `propagator._extract_strips`, the final fields (5, S, nz, nx) in Fields
 order; kernels and plain versions share both.
 
+The kernels run one fused launch a step over tiles in shared memory
+(elastic_common.cuh), with the fields and what a step reads at neighbours
+held twice, and the CPML memories only in their bands (`cpml_bands`);
+`state_floats_per_shot` counts what a gradient holds a shot.
+
 The wrappers take their plain versions only for tensors that lie on the
 CPU.  On CUDA tensors they launch the kernels or raise: they never drop to
 the plain versions or to the CPU.  `LAUNCHES` and `LAUNCHES_BWD` count the
@@ -48,8 +53,8 @@ from sep2023_tpu_torch.medium import material_fields
 from sep2023_tpu_torch.ops import _build
 from sep2023_tpu_torch.propagator import Fields, ShotGeom
 
-# Kernel launches made by forward_cuda_plan: 3 per time step (stress,
-# velocity, record), with or without strip saving, row or point receivers.
+# Kernel launches made by forward_cuda_plan: 2 per time step (the fused
+# step, record), with or without strip saving, row or point receivers.
 # Read and reset by callers that check the path they ran.
 LAUNCHES = 0
 # The part of LAUNCHES made with strip saving (the gradient's forward).
@@ -57,9 +62,9 @@ LAUNCHES_STRIPS = 0
 # The part of LAUNCHES that recorded at points (record_points_kernel): 1 per
 # time step of a FiberSurvey forward.
 LAUNCHES_FIBER = 0
-# Kernel launches made by backward_cuda_plan and reconstruct_cuda_plan: 2 a
-# step (velocity, stress) and 1 shot sum; with a FiberSurvey 3 per time step
-# (the point injection first) and 1 shot sum.
+# Kernel launches made by backward_cuda_plan and reconstruct_cuda_plan: 1 a
+# step (the fused reverse step) and 1 shot sum; with a FiberSurvey 2 per
+# time step (the point injection first) and 1 shot sum.
 LAUNCHES_BWD = 0
 # The part of LAUNCHES_BWD that injected point cotangents
 # (inject_points_kernel): 1 per time step of a FiberSurvey backward.
@@ -73,28 +78,86 @@ PLAIN_CALLS = {"forward_plain": 0, "forward_plain_strips": 0,
                "backward_plain_acoustic": 0,
                "reconstruct_plain_acoustic": 0, "rtm_image_time_plain": 0}
 
-N_STATE_PLANES = 13  # 5 fields + 8 CPML psi
-N_WORK_PLANES = 21   # 5 adjoint fields + 8 adjoint psi + 8 stencil cotangents
-N_GRAD_PLANES = 5    # per-shot gradients of the material planes
+# Planes of nz x nx a shot, as the wrappers allocate them: the fields twice
+# (the kernels' double buffer, the forward's and the backward's), the
+# backward's work planes (the stresses' cotangents once; those of vz, vx
+# and the stress stencils' cotangents D1..D4 twice), the per-shot
+# gradients; and CPML memories of each axis in band storage (the forward's
+# 4 stress-phase memories twice and 4 velocity-phase ones once; the
+# backward's the other way round).
+N_STATE_PLANES = 10
+N_WORK_PLANES = 15
+N_GRAD_PLANES = 5
+N_BAND_PLANES = 6
 
 ETT_MODES = {"exx": 0, "ezz": 1, "weighted": 2}  # EttMode, elastic_common.cuh
-# Adjoint planes of the work buffer that take receiver cotangents (Work,
+# Adjoint planes of the work buffer that take receiver cotangents (InjPlane,
 # elastic_bwd.cu).
 _A_VZ, _A_VX, _A_SZZ, _A_SXX = 0, 1, 2, 3
 # The same of the acoustic work buffer (Work, acoustic_bwd.cu).
 _AC_A_P, _AC_A_VZ, _AC_A_VX = 0, 1, 2
 
-
 def launches_forward(cfg: SimConfig) -> int:
-    """Launches of one forward_cuda_plan call on the card: 3 a step."""
-    return 3 * (cfg.nt - 1)
+    """Launches of one forward_cuda_plan call on the card: 2 a step."""
+    return 2 * (cfg.nt - 1)
 
 
 def launches_backward(cfg: SimConfig, rs) -> int:
-    """Launches of one backward_cuda_plan call on the card: 2 a step for a
-    receiver row, 3 for point receivers, and the shot sum."""
-    per_step = 3 if isinstance(rs, FiberSurvey) else 2
+    """Launches of one backward_cuda_plan call on the card: 1 a step for a
+    receiver row, 2 for point receivers, and the shot sum."""
+    per_step = 2 if isinstance(rs, FiberSurvey) else 1
     return per_step * (cfg.nt - 1) + 1
+
+
+@functools.lru_cache(maxsize=64)
+def _profile_rows(cfg: SimConfig):
+    """(6, nz) and (6, nx) float32 CPML profile rows in cpml.CpmlScaled
+    order (ik, a, b, ik_h, a_h, b_h), built in float64 and cast: what the
+    kernels read."""
+    cp = cpml_mod.cpml_scaled(cfg.nz, cfg.nx, cfg.npml, cfg.dz, cfg.dx,
+                              cfg.dt, cfg.f0, dtype=np.float32)
+    return (np.stack([p.reshape(-1) for p in cp[:6]]),
+            np.stack([p.reshape(-1) for p in cp[6:]]))
+
+
+def _band(rows) -> tuple[int, int]:
+    """(lo, hi) of one axis: a and a_h (rows 1 and 4) are 0 exactly on
+    [lo, hi) and the band is [0, lo) and [hi, n)."""
+    n = rows.shape[1]
+    zero = np.flatnonzero((rows[1] == 0) & (rows[4] == 0))
+    if zero.size == 0:
+        return n, n
+    lo, hi = int(zero[0]), int(zero[-1]) + 1
+    if (rows[1, lo:hi] != 0).any() or (rows[4, lo:hi] != 0).any():
+        raise ValueError("the CPML profile's a is not 0 between its bands")
+    return lo, hi
+
+
+def cpml_bands(cfg: SimConfig) -> tuple[int, int, int, int]:
+    """(z_lo, z_hi, x_lo, x_hi): the CPML bands of the kernels, the rows
+    z < z_lo or z >= z_hi and the columns x < x_lo or x >= x_hi, where the
+    float32 profiles' a or a_h is not 0.  Between them a = 0 exactly, the
+    CPML memory stays 0 and the kernels keep none.  Taken from a, not b: at
+    the PML's inner edge b != 1 where a = 0."""
+    pz, px = _profile_rows(cfg)
+    return (*_band(pz), *_band(px))
+
+
+def band_floats(cfg: SimConfig) -> int:
+    """Floats of one z-memory and one x-memory plane of a shot in band
+    storage: nbz x nx + nz x nbx."""
+    z_lo, z_hi, x_lo, x_hi = cpml_bands(cfg)
+    return ((cfg.nz - (z_hi - z_lo)) * cfg.nx
+            + cfg.nz * (cfg.nx - (x_hi - x_lo)))
+
+
+def state_floats_per_shot(cfg: SimConfig) -> int:
+    """Floats a shot's gradient holds beside its strips while the backward
+    runs: the forward's final fields, the backward's double buffer of the
+    fields, its work planes, its per-shot gradients and its CPML memories
+    in band storage."""
+    planes = 5 + N_STATE_PLANES + N_WORK_PLANES + N_GRAD_PLANES
+    return planes * cfg.nz * cfg.nx + N_BAND_PLANES * band_floats(cfg)
 
 
 class RowSurvey(NamedTuple):
@@ -479,13 +542,9 @@ def reconstruct_plain(cfg: SimConfig, rs, lam, mu, rho, stf,
 
 @functools.lru_cache(maxsize=8)
 def _profiles(cfg: SimConfig, device: torch.device):
-    """(6, nz) and (6, nx) float32 CPML profile rows in cpml.CpmlScaled
-    order (ik, a, b, ik_h, a_h, b_h), built in float64 and cast.  Built
-    once per (cfg, device); the kernels only read them."""
-    cp = cpml_mod.cpml_scaled(cfg.nz, cfg.nx, cfg.npml, cfg.dz, cfg.dx,
-                              cfg.dt, cfg.f0, dtype=np.float32)
-    pz = np.stack([p.reshape(-1) for p in cp[:6]])
-    px = np.stack([p.reshape(-1) for p in cp[6:]])
+    """`_profile_rows` on `device`, uploaded once per (cfg, device); the
+    kernels only read them."""
+    pz, px = _profile_rows(cfg)
     return (torch.from_numpy(pz).to(device), torch.from_numpy(px).to(device))
 
 
@@ -542,10 +601,11 @@ def forward_cuda_plan(plan: FastPlan, lam, mu, rho, stf, src_z, src_x, rxz,
         prof_z, prof_x = _profiles(cfg, device)
         rec = plan.receivers(device)
         rec_z, rec_x, rec_w = (None,) * 3 if rec is None else rec[:3]
-        state = torch.zeros((N_STATE_PLANES, S, cfg.nz, cfg.nx),
-                            device=device, dtype=torch.float32)
-        data = torch.zeros((S, 4, rs.n_rec, cfg.nt), device=device,
-                           dtype=torch.float32)
+        zeros = lambda *shape: torch.zeros(shape, device=device,
+                                           dtype=torch.float32)
+        fields = zeros(2, 5, S, cfg.nz, cfg.nx)
+        psi = zeros(N_BAND_PLANES * S * band_floats(cfg))
+        data = zeros(S, 4, rs.n_rec, cfg.nt)
         strips = (torch.empty((S, cfg.nt - 1, 5, propagator.strip_len(cfg)),
                               device=device, dtype=torch.float32)
                   if save_strips else None)
@@ -555,10 +615,11 @@ def forward_cuda_plan(plan: FastPlan, lam, mu, rho, stf, src_z, src_x, rxz,
             mats.data_ptr(), prof_z.data_ptr(), prof_x.data_ptr(),
             stf.data_ptr(), *(t.data_ptr() for t in src),
             _ptr(rec_z), _ptr(rec_x), _ptr(rec_w),
-            state.data_ptr(), data.data_ptr(), _ptr(strips),
-            S, cfg.nz, cfg.nx, cfg.nt, *_row_args(rs),
+            fields.data_ptr(), psi.data_ptr(), data.data_ptr(),
+            _ptr(strips), S, cfg.nz, cfg.nx, cfg.nt, *_row_args(rs),
             ETT_MODES[cfg.das_channel], cfg.npml, cfg.n_bnd_layers,
-            ctypes.c_float(cfg.dt), ctypes.c_float(cfg.src_scale * cfg.dt),
+            *cpml_bands(cfg), ctypes.c_float(cfg.dt),
+            ctypes.c_float(cfg.src_scale * cfg.dt),
             ctypes.c_float(one / np.float32(cfg.dz)),
             ctypes.c_float(one / np.float32(cfg.dx)), stream)
     _raise_on(lib, err, "elastic_forward")
@@ -567,7 +628,8 @@ def forward_cuda_plan(plan: FastPlan, lam, mu, rho, stf, src_z, src_x, rxz,
         LAUNCHES_FIBER += cfg.nt - 1
     if save_strips:
         LAUNCHES_STRIPS += launches_forward(cfg)
-        return data, strips, state[:5]
+        # the final fields alone, so the double buffer is freed here
+        return data, strips, fields[(cfg.nt - 1) % 2].clone()
     return data
 
 
@@ -586,10 +648,13 @@ def _backward_kernel(plan: FastPlan, lam, mu, rho, stf, src, final, strips,
         rec = plan.receivers(device)
         table = (None,) * 6 if rec is None else rec[3]
         n_inj = 0 if rec is None else table[1].shape[0]
-        fields = final.clone()
         zeros = lambda *shape: torch.zeros(shape, device=device,
                                            dtype=torch.float32)
+        fields = torch.empty((2, 5, S, cfg.nz, cfg.nx), device=device,
+                             dtype=torch.float32)
+        fields[0].copy_(final)
         work = zeros(N_WORK_PLANES, S, cfg.nz, cfg.nx)
+        psi = zeros(N_BAND_PLANES * S * band_floats(cfg))
         gshot = zeros(S, N_GRAD_PLANES, cfg.nz, cfg.nx)
         gmat = torch.empty((N_GRAD_PLANES, cfg.nz, cfg.nx), device=device,
                            dtype=torch.float32)
@@ -599,17 +664,17 @@ def _backward_kernel(plan: FastPlan, lam, mu, rho, stf, src, final, strips,
             mats.data_ptr(), prof_z.data_ptr(), prof_x.data_ptr(),
             stf.data_ptr(), *(t.data_ptr() for t in src),
             strips.data_ptr(), d_data.data_ptr(), *(_ptr(t) for t in table),
-            fields.data_ptr(), work.data_ptr(), gshot.data_ptr(),
-            gmat.data_ptr(), d_stf.data_ptr(),
+            fields.data_ptr(), work.data_ptr(), psi.data_ptr(),
+            gshot.data_ptr(), gmat.data_ptr(), d_stf.data_ptr(),
             S, cfg.nz, cfg.nx, cfg.nt, *_row_args(rs),
             ETT_MODES[cfg.das_channel], n_inj, cfg.npml, cfg.n_bnd_layers,
-            ctypes.c_float(cfg.dt), ctypes.c_float(cfg.src_scale * cfg.dt),
-            stream)
+            *cpml_bands(cfg), ctypes.c_float(cfg.dt),
+            ctypes.c_float(cfg.src_scale * cfg.dt), stream)
     _raise_on(lib, err, "elastic_backward")
     LAUNCHES_BWD += launches_backward(cfg, rs)
     if rec is not None:
         LAUNCHES_BWD_FIBER += cfg.nt - 1
-    return gmat, d_stf, fields
+    return gmat, d_stf, fields[(cfg.nt - 1) % 2]
 
 
 def backward_cuda_plan(plan: FastPlan, lam, mu, rho, stf, src_z, src_x, rxz,

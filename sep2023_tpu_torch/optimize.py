@@ -20,6 +20,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 from scipy import optimize as sciopt
+from scipy.io import savemat
 
 
 class ScipyObjective:
@@ -98,23 +99,37 @@ class ScipyObjective:
 
 class InversionLogger:
     """Per-iteration checkpointing: loss.txt + parameter/gradient snapshots
-    (`Main-001:137-154`); enables manual resume like the reference."""
+    (`Main-001:137-154`); enables manual resume like the reference.
+    save_every: snapshot every that many iterations; start_iter: the first
+    iteration's number (a later stage continues the count and the files);
+    save_mat: also write each snapshot as a .mat file (scipy.io.savemat),
+    the reference's format.  loss_history keeps the losses logged."""
 
-    def __init__(self, result_dir: str, objective: ScipyObjective):
+    def __init__(self, result_dir: str, objective: ScipyObjective,
+                 save_every: int = 1, start_iter: int = 0,
+                 save_mat: bool = False):
         self.dir = result_dir
         self.obj = objective
-        self.it = 0
+        self.save_every = save_every
+        self.it = start_iter
+        self.loss_history = []
+        self.save_mat = save_mat
         os.makedirs(result_dir, exist_ok=True)
 
     def _snapshot(self, stem: str, arrays: dict):
         arrays = {n: v.cpu().numpy() for n, v in arrays.items()}
         np.savez(os.path.join(self.dir, f"{stem}.npz"), **arrays)
+        if self.save_mat:
+            savemat(os.path.join(self.dir, f"{stem}.mat"), arrays)
 
     def __call__(self, x):
+        self.loss_history.append(self.obj.f)
         with open(os.path.join(self.dir, "loss.txt"), "a") as fp:
             fp.write(f"{self.it} {self.obj.f}\n")
-        self._snapshot(f"model_{self.it:04d}", self.obj.unpack(np.asarray(x)))
-        self._snapshot(f"grad_{self.it:04d}", self.obj.unpack(self.obj.g))
+        if self.it % self.save_every == 0:
+            self._snapshot(f"model_{self.it:04d}",
+                           self.obj.unpack(np.asarray(x)))
+            self._snapshot(f"grad_{self.it:04d}", self.obj.unpack(self.obj.g))
         self.it += 1
 
 
@@ -126,8 +141,14 @@ REFERENCE_LBFGSB_OPTIONS = dict(gtol=1e-16, ftol=1e-12, maxcor=5,
 
 
 def lbfgsb(objective: ScipyObjective, maxiter: int,
-           callback: Optional[Callable] = None):
-    opts = dict(REFERENCE_LBFGSB_OPTIONS, maxiter=maxiter)
+           callback: Optional[Callable] = None, **options):
+    """scipy's L-BFGS-B from objective.x0 with the reference's options,
+    overridden by `options`; disp and iprint are accepted and dropped."""
+    opts = dict(REFERENCE_LBFGSB_OPTIONS)
+    opts.update(options)
+    opts.pop("disp", None)
+    opts.pop("iprint", None)
+    opts["maxiter"] = maxiter
     return sciopt.minimize(objective.fun, objective.x0, method="L-BFGS-B",
                            jac=objective.jac, bounds=objective.bounds,
                            tol=None, callback=callback, options=opts)

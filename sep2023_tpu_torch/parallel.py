@@ -68,15 +68,20 @@ def strip_bytes_per_shot(cfg: SimConfig, acoustic: bool = False,
 
 def state_bytes_per_shot(cfg: SimConfig, acoustic: bool = False,
                          itemsize: int = 4) -> int:
-    """Plane bytes one shot's gradient holds in device memory beside its
-    strips: the forward's state, the backward's copy of the final fields,
-    its work planes and the per-shot gradient planes (44 planes of nz x nx;
-    7.7 MB a shot at 165x265, 296 MB at 814x2064, in float32; 24 planes
-    acoustic)."""
-    ce = cuda_acoustic if acoustic else cuda_engine
-    n_fields = acoustic_mod.AC_N_FIELDS if acoustic else propagator.N_FIELDS
-    planes = (ce.N_STATE_PLANES + n_fields + ce.N_WORK_PLANES
-              + ce.N_GRAD_PLANES)
+    """Bytes one shot's gradient holds in device memory beside its strips,
+    as the kernels' wrappers allocate them.  Elastic
+    (`cuda_engine.state_floats_per_shot`): the forward's final fields, the
+    backward's double buffer of the fields, its 15 work planes and 5
+    per-shot gradients, 35 planes of nz x nx, and 6 planes of CPML memory of
+    each axis in band storage (6.8 MB a shot at 165x265, 240 MB at
+    814x2064, in float32).  Acoustic: the forward's state, the backward's
+    copy of the final fields, its work planes and the per-shot gradients,
+    24 planes."""
+    if not acoustic:
+        return cuda_engine.state_floats_per_shot(cfg) * itemsize
+    ca = cuda_acoustic
+    planes = (ca.N_STATE_PLANES + acoustic_mod.AC_N_FIELDS + ca.N_WORK_PLANES
+              + ca.N_GRAD_PLANES)
     return planes * cfg.nz * cfg.nx * itemsize
 
 
@@ -95,19 +100,22 @@ def hbm_budget_bytes(device=None) -> int:
 
 def auto_shot_chunk(cfg: SimConfig, n_shots: int, *, acoustic: bool = False,
                     budget_bytes: int | None = None, itemsize: int = 4,
-                    device=None) -> int:
+                    device=None, n_devices: int = 1) -> int:
     """Shots in flight for gradient evaluations (acoustic: for the acoustic
     gradient and image): the largest chunk whose strips and state planes fit
     the budget (`hbm_budget_bytes(device)` when budget_bytes is None), or 0
-    (unchunked) when every shot fits."""
+    (unchunked) when every shot fits.  `n_shots` is the global shot count;
+    with the shots split over `n_devices` devices the bound applies to each
+    device's ceil(n_shots / n_devices) local shots, the JAX package's
+    rule."""
     if budget_bytes is None:
         budget_bytes = hbm_budget_bytes(device)
-    n_shots = max(1, n_shots)
+    local_shots = -(-max(1, n_shots) // max(1, n_devices))
     per_shot = (strip_bytes_per_shot(cfg, acoustic, itemsize)
                 + state_bytes_per_shot(cfg, acoustic, itemsize))
-    if per_shot * n_shots <= budget_bytes:
+    if per_shot * local_shots <= budget_bytes:
         return 0
-    return max(1, min(n_shots, int(budget_bytes // per_shot)))
+    return max(1, min(local_shots, int(budget_bytes // per_shot)))
 
 
 def _chunks(S: int, shot_chunk: int):
@@ -169,7 +177,11 @@ def _chunked_sum(chunk_loss, model, stf, rest, weights, shot_chunk: int):
     it is the gradient accumulator `_ChunkedSum`: gradients flow to
     `model` and `stf`, the set the reference's native op emits
     ({misfit, gLambda, gMu, gDen, gStf}, Torch_Fwi.cpp:102-103), and
-    `rest` and `weights` get zeros (PARITY.md:79-87)."""
+    `rest` and `weights` get zeros (PARITY.md:79-87).  Data-side gradients
+    (to the observed data, the per-trace aux or the weights) under
+    chunking are therefore zeros; shot_chunk=0, one chunk, is the way to
+    get them.  There is no checkpointed oracle as the JAX package's
+    SEP2023_TPU_CHUNK_REMAT: no workflow here differentiates the data."""
     S = weights.shape[0]
     ranges = _chunks(S, shot_chunk)
     if len(ranges) == 1:
@@ -179,20 +191,28 @@ def _chunked_sum(chunk_loss, model, stf, rest, weights, shot_chunk: int):
 
 
 def make_local_misfit(cfg: SimConfig, channels: Sequence[str] = ("ett",),
-                      shot_chunk: int = 0):
-    """The plain propagator's L2 loss:
-    loss(lam, mu, rho, stf, geoms, obs, weights).  The adjoint source
-    flows back into the propagator as the data cotangent."""
-    fn = default_shot_misfit(channels)
+                      shot_chunk: int = 0, misfit_fn=None):
+    """The plain propagator's loss:
+    loss(lam, mu, rho, stf, geoms, obs, weights, *trace_aux).
 
-    def loss(lam, mu, rho, stf, geoms, obs, weights):
+    misfit_fn(obs_s, syn_s, *aux_s) is a per-shot objective on (4, R, nt)
+    data returning a scalar (default: L2 on `channels`), applied shot by
+    shot; every tensor of trace_aux leads with the shot axis and is chunked
+    with the other per-shot inputs.  The adjoint source flows back into the
+    propagator as the data cotangent either way."""
+    fn = (default_shot_misfit(channels) if misfit_fn is None
+          else _over_shots(misfit_fn))
+
+    def loss(lam, mu, rho, stf, geoms, obs, weights, *trace_aux):
         def chunk_loss(model, stf_c, rest_c, w_c):
-            geoms_c, obs_c = ShotGeom(*rest_c[:5]), rest_c[5]
+            geoms_c, obs_c, aux_c = ShotGeom(*rest_c[:5]), rest_c[5], \
+                rest_c[6:]
             syn = propagator.propagate_shots(cfg, *model, stf_c, geoms_c)
-            return (w_c * fn(obs_c, syn)).sum()
+            return (w_c * fn(obs_c, syn, *aux_c)).sum()
 
         return _chunked_sum(chunk_loss, (lam, mu, rho), stf,
-                            (*geoms[:5], obs), weights, shot_chunk)
+                            (*geoms[:5], obs, *trace_aux), weights,
+                            shot_chunk)
 
     return loss
 

@@ -45,6 +45,51 @@ AC_CASES = {
 # GRAD_MARGIN, for the same reason as the elastic ones.
 AC_INTERIOR = 2
 
+# Cases that put the edges of the fused kernels' tiles (kTileZ x kTileX =
+# 16 x 32 cells, csrc/elastic_common.cuh) where a race or a halo fault
+# would show: grid sides that are not multiples of the tile, a grid smaller
+# than one tile, a CPML band wider than a tile, and sources, a receiver row's first and last
+# receiver and fiber points on the cells either side of a tile edge.  Each:
+# (physical nz, nx, npml, nt, das_channel, padded (src_z, src_x) of each
+# shot, receivers): receivers ("row", rec_row, rec_x0, n_rec) or ("points",
+# rec_z, rec_x) with the weighted channel's weights (1, 0.5, 0.25), all
+# padded-grid indices.  20 m, 2 ms, 10 Hz.  Their adjoint test draws from
+# TILE_EDGE_SEED: seed 7's random pair nearly cancels on the sources-on-edges
+# case (<d, J s> = 15.9 where its terms are about 6e4), so that even the
+# plain versions' relative gap there is 1.6e-3.
+_EDGES_Z, _EDGES_X = (15, 16, 31, 32, 47, 48), (31, 32, 63, 64)
+TILE_EDGE_SEED = 8
+TILE_EDGE_CASES = {
+    "ragged tiles": (45, 61, 10, 260, "exx", ((11, 20), (11, 60)),
+                     ("row", 48, 20, 41)),
+    "grid under one tile": (8, 20, 3, 200, "ezz", ((4, 8), (4, 17)),
+                            ("row", 8, 4, 18)),
+    "band wider than a tile": (30, 50, 40, 260, "exx", ((41, 60), (41, 90)),
+                               ("row", 60, 45, 40)),
+    "source and row ends on tile edges": (
+        44, 76, 10, 260, "exx", ((16, 32), (15, 63), (32, 31)),
+        ("row", 48, 32, 32)),
+    "fiber points on tile edges": (
+        44, 76, 10, 260, "weighted", ((11, 40), (11, 70)),
+        ("points", np.repeat(_EDGES_Z, len(_EDGES_X)),
+         np.tile(_EDGES_X, len(_EDGES_Z)))),
+}
+
+
+def tile_edge_problem(name, *, device):
+    """A TILE_EDGE_CASES case: (cfg, RowSurvey or FiberSurvey, args)."""
+    nz, nx, npml, nt, channel, src, rec = TILE_EDGE_CASES[name]
+    src_z, src_x = (np.array(a) for a in zip(*src))
+    cfg, args = _problem(nz, nx, npml, nt, len(src_z), channel, 20.0, 0.002,
+                         10.0, device)
+    args = (*args[:4], src_z, src_x, np.ones(len(src_z)))
+    if rec[0] == "row":
+        return cfg, cuda_engine.RowSurvey(*rec[1:]), args
+    rec_z, rec_x = rec[1:]
+    das_w = np.tile([1.0, 0.5, 0.25], (len(rec_z), 1))
+    return cfg, cuda_engine.make_fiber_survey(rec_z, rec_x, das_w), args
+
+
 # Kernel vs plain, float32 both.  Forward data: per channel, relative to the
 # channel max (the JAX package's Pallas-vs-XLA bound); strips and final
 # fields: per field, relative to the field max.

@@ -7,8 +7,11 @@ residual), on receiver rows (ROW_CASES) and on point receivers
 (FIBER_CASES: a weighted arc fiber, a column, duplicate points); and the
 acoustic kernels on AC_CASES (a row, duplicate points, a column) to the same
 tolerances, with the image and illumination of the imaging variant (5e-4).
-These mirror phases 3, 7-10, 12 and 17 of chip_smoke.py; they need a CUDA
-device and nvcc, and skip without a card:
+The fused elastic kernels also on TILE_EDGE_CASES, where the edges of their
+tiles can bite: data, strips and final fields bitwise equal to plain,
+gradients, a second backward bitwise, the reconstruction residual equal to
+plain's.  These mirror phases 3, 7-10, 12, 17 and 20 of chip_smoke.py; they
+need a CUDA device and nvcc, and skip without a card:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -20,12 +23,13 @@ from sep2023_tpu_torch.ops import cuda_acoustic, cuda_engine
 from sep2023_tpu_torch.testing import (AC_CASES, AC_INTERIOR, DOT_TOL,
                                        FIBER_CASES, FWD_TOL, GRAD_TOL,
                                        RECON_RATIO, ROW_CASES,
+                                       TILE_EDGE_CASES, TILE_EDGE_SEED,
                                        ac_perturbed_cotangent, ac_problem,
                                        adjoint_gap, fiber_problem,
                                        grad_errors, max_rel,
                                        perturbed_cotangent,
                                        reconstruction_residual, row_problem,
-                                       strip_errors)
+                                       strip_errors, tile_edge_problem)
 
 pytestmark = pytest.mark.cuda
 
@@ -41,7 +45,7 @@ def _compare(cfg, rs, args, tol):
     before = cuda_engine.LAUNCHES
     out = cuda_engine.forward_cuda_plan(cuda_engine.plan_for(cfg, rs), *args)
     torch.cuda.synchronize()
-    assert cuda_engine.LAUNCHES - before == 3 * (cfg.nt - 1)
+    assert cuda_engine.LAUNCHES - before == cuda_engine.launches_forward(cfg)
     ref = cuda_engine.forward_plain(cfg, rs, *args)
     out, ref = out.cpu().numpy(), ref.cpu().numpy()
     assert np.isfinite(out).all()
@@ -72,7 +76,7 @@ def test_strips_kernel_matches_plain(cuda, case):
     out = cuda_engine.forward_cuda_plan(cuda_engine.plan_for(cfg, rs), *args,
                                         save_strips=True)
     torch.cuda.synchronize()
-    steps = 3 * (cfg.nt - 1)
+    steps = cuda_engine.launches_forward(cfg)
     assert (cuda_engine.LAUNCHES, cuda_engine.LAUNCHES_STRIPS) == \
         (before[0] + steps, before[1] + steps)
     d, s, f = strip_errors(out, cuda_engine.forward_plain_strips(cfg, rs,
@@ -92,7 +96,8 @@ def test_backward_kernel_matches_plain(cuda, case):
     out = cuda_engine.backward_cuda_plan(plan, *res)
     again = cuda_engine.backward_cuda_plan(plan, *res)
     torch.cuda.synchronize()
-    assert cuda_engine.LAUNCHES_BWD - before == 2 * (2 * (cfg.nt - 1) + 1)
+    assert cuda_engine.LAUNCHES_BWD - before == \
+        2 * cuda_engine.launches_backward(cfg, rs)
     for a, b in zip(out, again):  # no atomics: the same bits every run
         assert torch.equal(a, b)
     err = grad_errors(out, cuda_engine.backward_plain(cfg, rs, *res), cfg)
@@ -130,7 +135,7 @@ def test_fiber_forward_matches_plain(cuda, case):
     torch.cuda.synchronize()
     steps = cfg.nt - 1
     assert (cuda_engine.LAUNCHES, cuda_engine.LAUNCHES_FIBER) == \
-        (before[0] + 3 * steps, before[1] + steps)
+        (before[0] + cuda_engine.launches_forward(cfg), before[1] + steps)
     ref = cuda_engine.forward_plain_strips(cfg, rs, *args)
     assert float(ref[0][:, 3].abs().max()) > 1e-3
     d, s, f = strip_errors(out, ref)
@@ -152,7 +157,8 @@ def test_fiber_backward_matches_plain(cuda, case):
     torch.cuda.synchronize()
     steps = cfg.nt - 1
     assert (cuda_engine.LAUNCHES_BWD, cuda_engine.LAUNCHES_BWD_FIBER) == \
-        (before[0] + 2 * (3 * steps + 1), before[1] + 2 * steps)
+        (before[0] + 2 * cuda_engine.launches_backward(cfg, rs),
+         before[1] + 2 * steps)
     for a, b in zip(out, again):
         assert torch.equal(a, b)
     err = grad_errors(out, cuda_engine.backward_plain(cfg, rs, *res), cfg)
@@ -240,3 +246,48 @@ def test_acoustic_image_matches_plain(cuda, case):
         plan, vp, rho, stf, src_z, src_x, residual, sum_shots=True)
     assert max_rel(img_s, img_p.sum(0)) < GRAD_TOL
     assert max_rel(ill_s, ill_p.sum(0)) < GRAD_TOL
+
+
+@pytest.mark.parametrize("case", list(TILE_EDGE_CASES))
+def test_tile_edges_forward_bitwise(cuda, case):
+    """The fused forward where tile edges bite: data, strips and final
+    fields bitwise equal to plain, the same data without strips, and the
+    reconstruction residual equal to the plain f32 one."""
+    cfg, rs, args = tile_edge_problem(case, device=cuda)
+    plan = cuda_engine.plan_for(cfg, rs)
+    out = cuda_engine.forward_cuda_plan(plan, *args, save_strips=True)
+    data = cuda_engine.forward_cuda_plan(plan, *args)
+    ref = cuda_engine.forward_plain_strips(cfg, rs, *args)
+    assert float(ref[0][:, 3].abs().max()) > 1e-3
+    assert torch.equal(data, out[0])
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    _, strips, final = out
+    kern = reconstruction_residual(cfg, cuda_engine.reconstruct_cuda_plan(
+        plan, *args, final, strips), data)
+    plain = reconstruction_residual(cfg, cuda_engine.reconstruct_plain(
+        cfg, rs, *args, final, strips), data)
+    assert kern == plain, (kern, plain)
+
+
+@pytest.mark.parametrize("case", list(TILE_EDGE_CASES))
+def test_tile_edges_backward(cuda, case):
+    """The fused backward where tile edges bite: gradients within GRAD_TOL,
+    a second backward bitwise, the launch count, the adjoint identity."""
+    cfg, rs, args = tile_edge_problem(case, device=cuda)
+    plan = cuda_engine.plan_for(cfg, rs)
+    syn, strips, final = cuda_engine.forward_cuda_plan(plan, *args,
+                                                       save_strips=True)
+    res = (*args, final, strips, perturbed_cotangent(cfg, rs, args, syn))
+    before = cuda_engine.LAUNCHES_BWD
+    out = cuda_engine.backward_cuda_plan(plan, *res)
+    again = cuda_engine.backward_cuda_plan(plan, *res)
+    torch.cuda.synchronize()
+    assert cuda_engine.LAUNCHES_BWD - before == \
+        2 * cuda_engine.launches_backward(cfg, rs)
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+    err = grad_errors(out, cuda_engine.backward_plain(cfg, rs, *res), cfg)
+    assert max(err) < GRAD_TOL, err
+    _, _, gap = adjoint_gap(cfg, rs, args, TILE_EDGE_SEED)
+    assert gap <= DOT_TOL

@@ -198,12 +198,13 @@ BUDGET = (80 * 2 ** 30 * 3) // 8
 @pytest.mark.parametrize("nz,nx,nt,shots,want,strips_alone", [
     (165, 265, 1501, 19, 0, 0),      # the reference workload: unchunked
     (560, 720, 2001, 19, 0, 0),      # 11.1 GB of strips and planes
-    (814, 2064, 2001, 24, 22, 0),    # strips 27.6 GB, planes 7.1 GB more
+    (814, 2064, 2001, 24, 23, 0),    # strips 27.6 GB, planes 5.8 GB more
     (814, 2064, 601, 24, 0, 0),      # planes nearly equal to the strips
 ])
 def test_auto_shot_chunk_counts_the_planes(nz, nx, nt, shots, want,
                                            strips_alone):
-    """A chunk is sized by the strips and the 44 state planes a shot.  At
+    """A chunk is sized by the strips and the state a shot: 35 planes and
+    the CPML memories in their bands (2 npml rows, 2 npml columns).  At
     814x2064, nt=2001, 24 shots the strips alone fit the budget and the
     planes beside them do not."""
     cfg = tcfg.SimConfig(nz=nz, nx=nx, dz=10.0, dx=10.0, nt=nt, dt=0.001,
@@ -211,7 +212,7 @@ def test_auto_shot_chunk_counts_the_planes(nz, nx, nt, shots, want,
     strips = tpar.strip_bytes_per_shot(cfg)
     planes = tpar.state_bytes_per_shot(cfg)
     assert strips == (nt - 1) * 5 * 2 * 5 * (nz + nx) * 4
-    assert planes == 44 * nz * nx * 4
+    assert planes == (35 * nz * nx + 6 * 64 * (nz + nx)) * 4
     assert tpar.auto_shot_chunk(cfg, shots, budget_bytes=BUDGET) == want
     fits_alone = strips * shots <= BUDGET
     assert fits_alone == (strips_alone == 0)
