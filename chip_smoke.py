@@ -19,16 +19,20 @@ The acoustic physics the same way: the kernels of csrc/acoustic_fwd.cu and
 csrc/acoustic_bwd.cu (the 3-field forward, with and without strips, the
 boundary-saving adjoint and its imaging variant) against their plain
 versions on AC_CASES, the reference shape and the reference workload
-(phase 17); at the shapes of the JAX package's streamed acoustic pair, one
-shot at 560x720 and 814x2064 and a 112-shot chunk at 560x720 bit for bit
-against single shots (phase 18); and their main paths with exact launch
-counts and no plain call (phase 19): `forward --physics acoustic` at the
-reference workload and at 560x720 with 64 shots, `rtm` at its defaults,
-the acoustic gradient of the JAX package's bench at the reference workload
-and at the two streamed shapes, and `rtm --physics elastic`.
+(phase 17) and on the tile-edge cases of AC_TILE_EDGE_CASES (phase 21); at
+the shapes of the JAX package's streamed acoustic pair, one shot at 560x720
+and 814x2064 and a 112-shot chunk at 560x720 bit for bit against single
+shots (phase 18); and their main paths with exact launch counts and no
+plain call (phase 19): `forward --physics acoustic` at the reference
+workload and at 560x720 with 64 shots, `rtm` at its defaults, the acoustic
+gradient of the JAX package's bench at the reference workload and at the
+two streamed shapes, and `rtm --physics elastic`, whose illumination runs
+the fused elastic step with its illumination accumulator (held bit for
+bit against imaging.source_illumination on the card).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 3,7,8,9,10,20   # those phases only
+    python3 chip_smoke.py --phases 17,21           # the acoustic pair
 
 Needs one CUDA device and nvcc; exits nonzero, printing no result, without
 them.  Imports neither jax nor sep2023_tpu.  The last line of standard
@@ -51,19 +55,21 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from sep2023_tpu_torch import api, cli, das, models, parallel
+from sep2023_tpu_torch import api, cli, das, imaging, models, parallel
 from sep2023_tpu_torch import io as sio
 from sep2023_tpu_torch.config import SimConfig, Survey, ricker
 from sep2023_tpu_torch.medium import Medium, pad_model_np
 from sep2023_tpu_torch.ops import _build, cuda_acoustic, cuda_engine
 from sep2023_tpu_torch.ops import signal as sg
 from sep2023_tpu_torch.ops.misfit import l2_misfit
-from sep2023_tpu_torch.testing import (AC_CASES, AC_INTERIOR, DOT_TOL,
+from sep2023_tpu_torch.testing import (AC_CASES, AC_INTERIOR,
+                                       AC_TILE_EDGE_CASES, DOT_TOL,
                                        FIBER_CASES, GRAD_TOL, RECON_RATIO,
                                        ROW_CASES, TILE_EDGE_CASES,
                                        TILE_EDGE_SEED,
                                        ac_perturbed_cotangent, ac_problem,
-                                       ac_row_problem, acoustic_args,
+                                       ac_row_problem, ac_tile_edge_problem,
+                                       acoustic_args,
                                        adjoint_gap, fiber_problem,
                                        grad_errors, perturbed_cotangent,
                                        reconstruction_residual, row_problem,
@@ -95,12 +101,16 @@ TOL_LONG = 1e-4     # nt=1501: FMA contraction and summation order differ,
 #   acoustic_fwd.cu: pressure 24 (2 stencils x 5, 2 CPML derivatives x 5,
 #     increment 3, 1 field add), velocity 26 (10 + 10, increments 4,
 #     2 adds): 50;
-#   acoustic_bwd.cu: velocity launch 56 (2 transposed stencils and their
+#   acoustic_bwd.cu: velocity phase 56 (2 transposed stencils and their
 #     sums 12, 2 stencils 10, reconstruction 8, buoyancy cotangents and
-#     gradients 16, 2 CPML adjoints x 5), pressure launch 49 (12, 10,
+#     gradients 16, 2 CPML adjoints x 5), pressure phase 49 (12, 10,
 #     reconstruction 6, cotangent and gradient of lam 11, 10): 105; as the
 #     imaging variant 102 (the 9 of the three gradients give way to the 6 of
-#     the image and the illumination).
+#     the image and the illumination);
+#   elastic_fwd.cu with the illumination accumulator: 102 and 3 (pr, its
+#     square, the sum): 105.
+# Each counts the work of a cell-step once: the fused kernels' recomputed
+# halo is not work the function needs.
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 FWD_OPS_PER_CELL_STEP = 102
@@ -108,6 +118,7 @@ BWD_OPS_PER_CELL_STEP = 215
 AC_FWD_OPS_PER_CELL_STEP = 50
 AC_BWD_OPS_PER_CELL_STEP = 105
 AC_IMG_OPS_PER_CELL_STEP = 102
+ILL_OPS_PER_CELL_STEP = FWD_OPS_PER_CELL_STEP + 3
 
 
 def check(cond, msg):
@@ -143,7 +154,8 @@ def cuda_ms(fn, reps, warm=True):
 # Every launch counter, by the module that holds it.
 COUNTERS = {"LAUNCHES": cuda_engine, "LAUNCHES_STRIPS": cuda_engine,
             "LAUNCHES_FIBER": cuda_engine, "LAUNCHES_BWD": cuda_engine,
-            "LAUNCHES_BWD_FIBER": cuda_engine, "LAUNCHES_AC": cuda_acoustic,
+            "LAUNCHES_BWD_FIBER": cuda_engine, "LAUNCHES_ILL": cuda_engine,
+            "LAUNCHES_AC": cuda_acoustic,
             "LAUNCHES_AC_STRIPS": cuda_acoustic,
             "LAUNCHES_AC_BWD": cuda_acoustic,
             "LAUNCHES_AC_IMG": cuda_acoustic}
@@ -235,6 +247,16 @@ def tile_plan():
     return tuple(plan)
 
 
+def acoustic_plan(kind):
+    """(static shared memory a block in bytes, blocks an SM of this device)
+    of the fused acoustic `kind` kernel ('forward' or 'backward'), as the
+    library has them."""
+    out = (ctypes.c_int * 2)()
+    err = getattr(_build.load(), f"acoustic_{kind}_plan")(out)
+    check(err == 0, f"acoustic_{kind}_plan: CUDA error {err}")
+    return tuple(out)
+
+
 def phase_build():
     t0 = time.perf_counter()
     path = _build.build()
@@ -244,6 +266,13 @@ def phase_build():
     print(f"[2 build] fused elastic kernels: {tz}x{tx} tiles, {threads} "
           f"threads a block, shared memory a block {fwd_smem} B (forward, "
           f"static) and {bwd_smem} B (backward, dynamic)")
+    for kind, kernel in (("forward", "ac_fwd_step_kernel"),
+                         ("backward", "ac_bwd_step_kernel")):
+        smem, blocks = acoustic_plan(kind)
+        print(f"[2 build] fused acoustic {kind} ({kernel}): "
+              f"{tz}x{tx} tiles, {threads} threads a block, {smem} B of "
+              f"static shared memory a block, {blocks} blocks an SM on "
+              f"{torch.cuda.get_device_name(0)}")
     # ptxas -v: "Function properties for <mangled name>", then "N bytes
     # stack frame, N bytes spill stores, N bytes spill loads" and "Used N
     # registers, ..." for that kernel
@@ -765,6 +794,9 @@ def hold_against_plain(tag, cfg, rs, inputs, tol, silent_samples=20,
     d, s, f = strip_errors(out, ref)
     check(max(d) < tol and max(s + f) < TOL,
           f"{tag} forward vs plain {d} {s} {f}")
+    if eng.acoustic:
+        check(all(torch.equal(a, b) for a, b in zip(out, ref)),
+              f"{tag} forward vs plain not bitwise: {d} {s} {f}")
     fwd_abs = max(float((a - b).abs().max()) for a, b in zip(out, ref))
     del ref
     g_ref, bwd_plain = _timed(lambda: eng.plain_backward(cfg, rs, *res))
@@ -787,6 +819,8 @@ def hold_against_plain(tag, cfg, rs, inputs, tol, silent_samples=20,
         cfg, rs, *inputs, final, strips), data)
     check(np.isfinite(kern) and kern <= RECON_RATIO * plain,
           f"{tag} reconstruction residual {kern} > {RECON_RATIO} x {plain}")
+    check(not eng.acoustic or kern == plain,
+          f"{tag} reconstruction residual {kern}, plain f32 {plain}")
 
     fwd_ms = cuda_ms(lambda: eng.forward(plan, *inputs, save_strips=True), 3)
     bwd_ms = cuda_ms(lambda: eng.backward(plan, *res), 3)
@@ -1035,26 +1069,27 @@ def phase_fiber_main_path(dev):
     return counts
 
 
-def _acoustic_forward_pair(label, cfg, rs, args, tol):
+def _acoustic_forward_pair(label, cfg, rs, args):
     """acoustic_forward without strips and with them: the launch counters,
-    the same data either way, and both against the plain version with
-    strips.  Returns (the kernel's (data, strips, final), the errors)."""
+    the same data either way, and both bitwise equal to the plain version
+    with strips.  Returns (the kernel's (data, strips, final), the
+    errors)."""
     steps = cfg.nt - 1
+    fwd = cuda_acoustic.launches_forward_acoustic(cfg)
     plan = cuda_engine.plan_for(cfg, rs)
     reset_counts()
     out = cuda_acoustic.forward_cuda_acoustic_plan(plan, *args,
                                                    save_strips=True)
     data = cuda_acoustic.forward_cuda_acoustic_plan(plan, *args)
     counts, _ = read_counts()
-    check(counts_are(counts, {"LAUNCHES_AC": 6 * steps,
-                              "LAUNCHES_AC_STRIPS": 3 * steps})
-          and 3 * steps == cuda_acoustic.launches_forward_acoustic(cfg),
+    check(counts_are(counts, {"LAUNCHES_AC": 2 * fwd,
+                              "LAUNCHES_AC_STRIPS": fwd}) and fwd == 2 * steps,
           f"{label}: forward launch counters {counts}")
     check(torch.equal(data, out[0]), f"{label}: strip saving changed the data")
     ref = cuda_acoustic.forward_plain_acoustic_strips(cfg, rs, *args)
     d, s, f = strip_errors(out, ref)
-    check(max(d) < tol and max(s + f) < TOL,
-          f"{label}: kernel vs plain {d} {s} {f}")
+    check(all(torch.equal(a, b) for a, b in zip(out, ref)),
+          f"{label}: kernel vs plain not bitwise: {d} {s} {f}")
     peaks = [float(ref[0][:, c].abs().max()) for c in range(3)]
     check(min(peaks) > 1e-3, f"{label}: no arrivals at the receivers {peaks}")
     return out, (d, s, f)
@@ -1109,13 +1144,16 @@ def _acoustic_image_pair(label, cfg, rs, args, final, strips, residual,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
-def _acoustic_case(label, cfg, rs, args):
-    """A small acoustic case: forward, strips, backward (cotangent: the L2
-    residual against the model with lam raised by 3%), a second backward
-    bitwise, the adjoint dot product, the reconstruction, the image."""
+def _acoustic_case(tag, label, cfg, rs, args, seed=7):
+    """A small acoustic case: forward, strips and final fields bitwise,
+    backward (cotangent: the L2 residual against the model with lam raised
+    by 3%), a second backward bitwise, the adjoint dot product (its random
+    pair drawn from `seed`), the reconstruction residual equal to the plain
+    f32 one, the image.  `tag` heads the printed lines."""
     plan = cuda_engine.plan_for(cfg, rs)
+    fwd = cuda_acoustic.launches_forward_acoustic(cfg)
     (syn, strips, final), (d, s, f) = _acoustic_forward_pair(label, cfg, rs,
-                                                             args, TOL)
+                                                             args)
     cot = ac_perturbed_cotangent(cfg, rs, args, syn)
     check(float(cot.abs().max()) > 1e-3 * float(syn.abs().max()),
           f"{label}: the cotangent is round-off")
@@ -1134,7 +1172,7 @@ def _acoustic_case(label, cfg, rs, args):
           f"{label}: backward launch counters {counts}")
     check(all(torch.equal(a, b) for a, b in zip(g, again)),
           f"{label}: a second backward run gave other bits")
-    _, _, gap = adjoint_gap(cfg, rs, args)
+    _, _, gap = adjoint_gap(cfg, rs, args, seed)
     check(gap <= DOT_TOL, f"{label}: adjoint gap {gap} > {DOT_TOL}")
     kern = reconstruction_residual(
         cfg, cuda_acoustic.reconstruct_cuda_acoustic_plan(
@@ -1142,18 +1180,18 @@ def _acoustic_case(label, cfg, rs, args):
     plain = reconstruction_residual(
         cfg, cuda_acoustic.reconstruct_plain_acoustic(
             cfg, rs, *args, final, strips), syn)
-    check(np.isfinite(kern) and kern <= RECON_RATIO * plain,
-          f"{label}: reconstruction residual {kern} > {RECON_RATIO} x {plain}")
-    print(f"[17 acoustic vs plain] {label} ({cfg.nz}x{cfg.nx}, nt={cfg.nt}, "
-          f"{type(rs).__name__}, {rs.n_rec} receivers): max rel err data per "
-          f"channel {d}, strips {max(s)}, final fields {max(f)} < {TOL}; "
-          f"(d_lam, d_rho, d_stf) {err} < {GRAD_TOL} on the tight interior "
-          f"less {AC_INTERIOR}; adjoint gap {gap:.3e} <= {DOT_TOL}; a second "
-          f"backward bitwise equal; reconstruction residual / peak |pr| "
-          f"kernel {kern:.6e}, plain f32 {plain:.6e}; launches a forward "
-          f"3 x {cfg.nt - 1}, a backward {n}")
-    _acoustic_image_pair(f"[17 acoustic vs plain] {label}", cfg, rs, args,
-                         final, strips, -cot)
+    check(kern == plain,
+          f"{label}: reconstruction residual {kern}, plain f32 {plain}")
+    print(f"{tag} {label} ({cfg.nz}x{cfg.nx}, npml {cfg.npml}, nt={cfg.nt}, "
+          f"{args[2].shape[0]} shots, {type(rs).__name__}, {rs.n_rec} "
+          f"receivers): data, strips and final fields bitwise equal to plain "
+          f"(max rel err {max(d + s + f)}); (d_lam, d_rho, d_stf) {err} < "
+          f"{GRAD_TOL} on the tight interior less {AC_INTERIOR}; adjoint gap "
+          f"{gap:.3e} <= {DOT_TOL}; a second backward bitwise equal; "
+          f"reconstruction residual / peak |pr| {kern:.6e}, equal to plain "
+          f"f32; launches a forward {fwd}, a backward {n}")
+    _acoustic_image_pair(f"{tag} {label}", cfg, rs, args, final, strips,
+                         -cot)
 
 
 def phase_acoustic_vs_plain(dev):
@@ -1161,9 +1199,10 @@ def phase_acoustic_vs_plain(dev):
     versions: AC_CASES, the reference shape (nt=301, 2 shots) and the
     reference workload, where they are timed: returns that case's (forward,
     forward with strips, backward, imaging) numbers."""
+    tag = "[17 acoustic vs plain]"
     for name in AC_CASES:
-        _acoustic_case(name, *ac_problem(name, device=dev))
-    _acoustic_case("reference shape nt=301",
+        _acoustic_case(tag, name, *ac_problem(name, device=dev))
+    _acoustic_case(tag, "reference shape nt=301",
                    *ac_row_problem(101, 201, 32, 301, 2, 40, device=dev))
 
     cfg, rs, args = acoustic_reference_problem(dev)
@@ -1180,15 +1219,16 @@ def phase_acoustic_vs_plain(dev):
     ref, plain_ms = _timed(lambda: cuda_acoustic.forward_plain_acoustic(
         cfg, rs, *args))
     d = [rel_err(out[:, c], ref[:, c]) for c in range(3)]
-    check(max(d) < TOL_LONG, f"{tag}: forward vs plain {d} >= {TOL_LONG}")
+    check(torch.equal(out, ref), f"{tag}: forward vs plain not bitwise {d}")
     abs_err = float((out - ref).abs().max())
     n_bytes = nbytes(*args[:3], out)
     del ref
     ms = cuda_ms(lambda: cuda_acoustic.forward_cuda_acoustic_plan(plan, *args),
                  5)
     b_ms, b_by = bound(cfg, 19, AC_FWD_OPS_PER_CELL_STEP, n_bytes)
-    print(f"{tag} (19 shots): forward without strips vs plain: max rel err "
-          f"per channel {d} < {TOL_LONG}; CUDA events: kernel {ms:.3f} ms "
+    print(f"{tag} (19 shots): forward without strips bitwise equal to "
+          f"plain (max rel err per channel {d}); CUDA events: kernel "
+          f"{ms:.3f} ms "
           f"(mean of 5), plain {plain_ms:.3f} ms (the comparison's run); "
           f"bound {b_ms:.3f} ms ({b_by}, {n_bytes / 1e9:.3f} GB)")
     fwd = dict(max_abs_err=abs_err, max_rel_err=max(d), ms=ms,
@@ -1242,6 +1282,18 @@ def phase_acoustic_large(dev):
     return numbers
 
 
+def phase_acoustic_tile_edges(dev):
+    """The fused acoustic kernels where their tile edges can bite
+    (AC_TILE_EDGE_CASES): each case through `_acoustic_case`."""
+    tz, tx = tile_plan()[:2]
+    for name in AC_TILE_EDGE_CASES:
+        cfg, rs, args = ac_tile_edge_problem(name, device=dev)
+        tiles = (-(-cfg.nz // tz), -(-cfg.nx // tx))
+        _acoustic_case(f"[21 acoustic tile edges] ({tz}x{tx} tiles, "
+                       f"{tiles[0]}x{tiles[1]} a shot)", name, cfg, rs, args,
+                       TILE_EDGE_SEED)
+
+
 def _acoustic_gradient_fn(cfg, rs, args):
     """One acoustic gradient evaluation as the JAX package's bench makes it
     (bench.py sec_acoustic): loss 0.5 sum(d^2), gradients of lam and rho
@@ -1264,13 +1316,17 @@ def _counted_gradient(label, cfg, rs, args, reps):
     then its CUDA-event time.  Returns (counts, ms)."""
     gradient = _acoustic_gradient_fn(cfg, rs, args)
     steps = cfg.nt - 1
+    fwd = cuda_acoustic.launches_forward_acoustic(cfg)
+    bwd = cuda_acoustic.launches_backward_acoustic(cfg, rs)
+    check(fwd == 2 * steps and bwd == steps + 1,
+          f"{label}: launches a forward {fwd}, a backward {bwd}")
     reset_counts()
     g = gradient()
     torch.cuda.synchronize()
     counts, plain_calls = read_counts()
     check_counts(label, counts, {
-        "LAUNCHES_AC": 3 * steps, "LAUNCHES_AC_STRIPS": 3 * steps,
-        "LAUNCHES_AC_BWD": 2 * steps + 1}, plain_calls)
+        "LAUNCHES_AC": fwd, "LAUNCHES_AC_STRIPS": fwd,
+        "LAUNCHES_AC_BWD": bwd}, plain_calls)
     gmax = [float(a.abs().max()) for a in g]
     check(all(bool(torch.isfinite(a).all()) for a in g) and min(gmax) > 0,
           f"{label}: gradient maxima {gmax}")
@@ -1279,8 +1335,8 @@ def _counted_gradient(label, cfg, rs, args, reps):
     S = args[2].shape[0]
     cells = cfg.nz * cfg.nx * steps * S
     print(f"{label} ({cfg.nz}x{cfg.nx}, nt={cfg.nt}, {S} shot(s)): max "
-          f"|gradient| (lam, rho) {gmax}; launches forward with strips 3 x "
-          f"{steps} = {counts['LAUNCHES_AC']}, backward 2 x {steps} + 1 = "
+          f"|gradient| (lam, rho) {gmax}; launches forward with strips 2 x "
+          f"{steps} = {counts['LAUNCHES_AC']}, backward {steps} + 1 = "
           f"{counts['LAUNCHES_AC_BWD']}, as expected; plain calls 0; "
           f"{ms:.3f} ms a gradient (CUDA events, mean of {reps}), "
           f"{cells / ms / 1e6:.2f} GCell/s")
@@ -1324,6 +1380,37 @@ def _rtm(label, argv, want, z_refl, tol_rows=15):
     return counts
 
 
+def _illumination_vs_plain(cfg, rs, inputs):
+    """illumination_cuda_plan against imaging.source_illumination on the
+    card, shot by shot, bit for bit (the kernel rounds pr = szz + sxx and
+    ill + pr * pr as the plain loop's elementwise ops do, on a forward that
+    is bitwise equal to plain); then its CUDA-event time.  Returns the
+    numbers of the kernels line."""
+    lam, mu, rho, stf, sz, sx, rxz = inputs
+    plan = cuda_engine.plan_for(cfg, rs)
+    S = stf.shape[0]
+    ill = cuda_engine.illumination_cuda_plan(plan, *inputs)
+    geoms = cuda_engine._geoms(cfg, rs, sz, sx, rxz, lam.device, lam.dtype)
+    ref, plain_ms = _timed(lambda: imaging.source_illumination(
+        cfg, lam, mu, rho, stf, geoms))
+    err = rel_err(ill, ref)
+    check(float(ref.max()) > 0 and torch.equal(ill, ref),
+          f"illumination kernel vs plain not bitwise: {err}")
+    del ref
+    ms = cuda_ms(lambda: cuda_engine.illumination_cuda_plan(plan, *inputs),
+                 3)
+    n_bytes = nbytes(lam, mu, rho, stf, ill)
+    b_ms, b_by = bound(cfg, S, ILL_OPS_PER_CELL_STEP, n_bytes)
+    print(f"[19e illumination vs plain] ({cfg.nz}x{cfg.nx}, nt={cfg.nt}, {S} "
+          f"shots): illumination_cuda_plan bitwise equal to "
+          f"imaging.source_illumination on every shot; CUDA events: kernel "
+          f"{ms:.3f} ms (mean of 3), plain {plain_ms:.3f} ms (the "
+          f"comparison's run); bound {b_ms:.3f} ms ({b_by}, "
+          f"{n_bytes / 1e9:.3f} GB)")
+    return dict(max_abs_err=0.0, max_rel_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
 def phase_acoustic_main_paths(dev, streamed):
     """The acoustic and imaging main paths, each with exact launch counts
     and no plain call.  `streamed`: phase 18's numbers by case.  Returns
@@ -1335,7 +1422,7 @@ def phase_acoustic_main_paths(dev, streamed):
         data = cli.main(["forward", "--physics", "acoustic", "--data-dir", d])
         counts, plain_calls = read_counts()
         check_counts("[19a main path] forward --physics acoustic", counts,
-                     {"LAUNCHES_AC": 3 * 1500}, plain_calls)
+                     {"LAUNCHES_AC": 2 * 1500}, plain_calls)
         out = data.cpu().numpy()
         check(data.device.type == "cuda" and out.shape == (19, 3, 181, 1501)
               and np.isfinite(out).all(), f"acoustic data {out.shape}")
@@ -1360,7 +1447,7 @@ def phase_acoustic_main_paths(dev, streamed):
     torch.cuda.synchronize()
     counts, plain_calls = read_counts()
     check_counts("[19b main path] forward --physics acoustic at 560x720",
-                 counts, {"LAUNCHES_AC": 3 * 2000}, plain_calls)
+                 counts, {"LAUNCHES_AC": 2 * 2000}, plain_calls)
     check(tuple(data.shape) == (64, 3, 636, 2001)
           and bool(torch.isfinite(data).all()), f"data {tuple(data.shape)}")
     cfg, rs, args = acoustic_reference_problem(dev, **grid)
@@ -1391,8 +1478,8 @@ def phase_acoustic_main_paths(dev, streamed):
 
     # (c) rtm at its defaults: acoustic, 19 shots in one chunk
     r["rtm"] = _rtm("[19c main path] rtm (acoustic):", [], {
-        "LAUNCHES_AC": 3 * 3 * 1500, "LAUNCHES_AC_STRIPS": 3 * 1500,
-        "LAUNCHES_AC_BWD": 2 * 1500 + 1, "LAUNCHES_AC_IMG": 2 * 1500 + 1}, 67)
+        "LAUNCHES_AC": 3 * 2 * 1500, "LAUNCHES_AC_STRIPS": 2 * 1500,
+        "LAUNCHES_AC_BWD": 1500 + 1, "LAUNCHES_AC_IMG": 1500 + 1}, 67)
 
     # (d) the bench's acoustic gradient at the reference workload
     bench = acoustic_reference_problem(dev, vp=2000.0)
@@ -1401,14 +1488,18 @@ def phase_acoustic_main_paths(dev, streamed):
         *bench, 3)
 
     # (e) rtm --physics elastic: K1, K1 with strips and K2 with cotangents
-    # on pr, vx and vz
-    cfg, rs, _ = reference_problem(dev, nt=1001)
+    # on pr, vx and vz, then the illumination through the fused step (one
+    # launch a step); then the illumination kernel against its plain
+    # version on the card, on the reference survey at the same grid and nt
+    cfg, rs, inputs = reference_problem(dev, nt=1001)
     fwd = cuda_engine.launches_forward(cfg)
     r["rtm_elastic"] = _rtm(
         "[19e main path] rtm --physics elastic --nt 1001:",
         ["--physics", "elastic", "--nt", "1001"], {
             "LAUNCHES": 2 * fwd, "LAUNCHES_STRIPS": fwd,
-            "LAUNCHES_BWD": cuda_engine.launches_backward(cfg, rs)}, 67)
+            "LAUNCHES_BWD": cuda_engine.launches_backward(cfg, rs),
+            "LAUNCHES_ILL": cfg.nt - 1}, 67)
+    r["illumination"] = _illumination_vs_plain(cfg, rs, inputs)
 
     # (f) the same differentiable propagation at the streamed pair's shapes
     # (propagate_pallas_acoustic_auto's streamed branch on the TPU)
@@ -1569,14 +1660,19 @@ def kernel_record(results):
     k5, k5_strips, k6, k6_img = r[17]
     ac = r[19]
     kernels += [
-        entry("acoustic_forward (pressure, velocity, record)", ac_fwd_src,
+        entry("elastic_illumination (fused step with the illumination "
+              "accumulator, no record): imaging.source_illumination's route "
+              "on the card, rtm --physics elastic --nt 1001", fwd_src,
+              "sep2023_tpu/imaging.py:57", ac["rtm_elastic"]["LAUNCHES_ILL"],
+              ac["illumination"]),
+        entry("acoustic_forward (fused step, record)", ac_fwd_src,
               fused + "1512", ac["forward"]["LAUNCHES_AC"], k5),
-        entry("acoustic_forward with boundary strips (pressure, velocity, "
-              "record)", ac_fwd_src, fused + "1512",
+        entry("acoustic_forward with boundary strips (fused step, record)",
+              ac_fwd_src, fused + "1512",
               ac["gradient"][0]["LAUNCHES_AC_STRIPS"], k5_strips),
-        entry("acoustic_backward (velocity, pressure, shot sum)", ac_bwd_src,
+        entry("acoustic_backward (fused reverse step, shot sum)", ac_bwd_src,
               fused + "1746", ac["gradient"][0]["LAUNCHES_AC_BWD"], k6),
-        entry("acoustic_backward, imaging variant (velocity, pressure with "
+        entry("acoustic_backward, imaging variant (fused reverse step with "
               "the image and illumination accumulators, shot sum): "
               "acoustic.rtm_image_time's route on the card", ac_bwd_src,
               "sep2023_tpu/acoustic.py:224", ac["rtm"]["LAUNCHES_AC_IMG"],
@@ -1635,6 +1731,7 @@ def main(argv=None):
         (15, lambda: phase_marmousi_chunked(dev)),
         (16, lambda: phase_fiber_main_path(dev)),
         (17, lambda: phase_acoustic_vs_plain(dev)),
+        (21, lambda: phase_acoustic_tile_edges(dev)),
         (18, lambda: phase_acoustic_large(dev)),
         (19, lambda: phase_acoustic_main_paths(dev, results[18])),
         (6, lambda: phase_profile(dev)),

@@ -374,13 +374,13 @@ def _rtm_elastic(cfg, survey, vpt, vpb, rho, stf, channels, device):
     """(image, illumination) of `rtm --physics elastic`, summed over shots:
     the zero-lag Vp condition is the Vp gradient of the L2 misfit on
     `channels`.  On the card through the elastic kernels (make_cuda_misfit,
-    in chunks of `auto_shot_chunk` shots); on the CPU imaging.rtm_image a
-    shot.  The illumination is an eager forward on the tensors' device."""
+    in chunks of `auto_shot_chunk` shots) and the illumination through the
+    fused forward step (cuda_engine.illumination_cuda_plan, chunk by chunk);
+    on the CPU imaging.rtm_image a shot and imaging.source_illumination."""
     vst, vsb = vpt / np.sqrt(2.2), vpb / np.sqrt(2.2)
     S = survey.n_shots
-    geoms = parallel.survey_to_geoms(survey, cfg.npml, device=device,
-                                     dtype=rho.dtype)
     lam_t, mu_t = (vpt ** 2 - 2.0 * vst ** 2) * rho, vst ** 2 * rho
+    lam_b, mu_b = (vpb ** 2 - 2.0 * vsb ** 2) * rho, vsb ** 2 * rho
     if device.type == "cuda":
         plan, _ = parallel._cuda_plan(cfg, survey)
         print("engine: " + cuda_engine.plan_engine_name(plan))
@@ -394,18 +394,26 @@ def _rtm_elastic(cfg, survey, vpt, vpb, rho, stf, channels, device):
         val = loss((vp_ ** 2 - 2.0 * vsb ** 2) * rho, vsb ** 2 * rho, rho,
                    stf, obs, torch.ones(S, device=device, dtype=rho.dtype))
         (img,) = torch.autograd.grad(val, vp_)
-    else:
-        img = torch.zeros_like(rho)
-        for i in range(S):
-            g = type(geoms)(*(None if t is None else t[i] for t in geoms))
-            with torch.no_grad():
-                obs = propagate(cfg, lam_t, mu_t, rho, stf[i], g)
-            img += imaging.rtm_image(cfg, vpb, vsb, rho, stf[i], g, obs,
-                                     channels=channels)
-    # per-cell source-energy illumination for the compensated product
-    ill = imaging.source_illumination(
-        cfg, (vpb ** 2 - 2.0 * vsb ** 2) * rho, vsb ** 2 * rho, rho, stf,
-        geoms).sum(0)
+        # per-cell source-energy illumination for the compensated product,
+        # every shot's plane kept so the shot sum is the plain version's
+        n = cfg.npml
+        sz, sx = survey.src_z + n, survey.src_x + n
+        ill = torch.cat([cuda_engine.illumination_cuda_plan(
+            plan, lam_b.contiguous(), mu_b.contiguous(), rho, stf[a:b],
+            sz[a:b], sx[a:b], survey.src_rxz[a:b])
+            for a, b in parallel._chunks(S, chunk)]).sum(0)
+        return img, ill
+    geoms = parallel.survey_to_geoms(survey, cfg.npml, device=device,
+                                     dtype=rho.dtype)
+    img = torch.zeros_like(rho)
+    for i in range(S):
+        g = type(geoms)(*(None if t is None else t[i] for t in geoms))
+        with torch.no_grad():
+            obs = propagate(cfg, lam_t, mu_t, rho, stf[i], g)
+        img += imaging.rtm_image(cfg, vpb, vsb, rho, stf[i], g, obs,
+                                 channels=channels)
+    ill = imaging.source_illumination(cfg, lam_b, mu_b, rho, stf,
+                                      geoms).sum(0)
     return img, ill
 
 

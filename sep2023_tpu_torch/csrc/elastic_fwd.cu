@@ -84,6 +84,14 @@
 // work is R receivers x 4 samples a step, bound by the launch, not by bytes
 // or operations.
 //
+// Illumination (rtm --physics elastic): with an illumination buffer the
+// owner of a cell adds (szz + sxx)^2 of the step's new stresses, source
+// included, to its cell (imaging.source_illumination; the velocity phase
+// does not touch the stresses), rounded as the plain loop rounds it
+// (pr = szz + sxx; ill += pr * pr), and elastic_illumination runs the fused
+// step alone, one launch a step, recording nothing.  Without the buffer the
+// step's arithmetic is unchanged.
+//
 // Rounding: the stencils, the interior increments and the source use the
 // shared code of elastic_common.cuh, with explicit rounding, so that the
 // backward kernel's reconstruction subtracts exactly what this kernel adds.
@@ -124,6 +132,7 @@ struct Params {
   float* psi;           // band storage, see PsiZ / PsiX
   float* data;          // (S, 4, R, nt)
   float* strips;        // (S, nt-1, 5, strip n), or null
+  float* ill;           // (S, nz, nx) illumination sums, or null
   int S, nz, nx, nt;
   int rec_row, rec_x0, n_rec, ett_mode;
   float dt, src_amp;    // src_amp = src_scale * dt
@@ -321,6 +330,11 @@ fwd_step_kernel(Params p, int it, int cur) {
       field(p, nxt, F_SZZ, s)[c] = szz;
       field(p, nxt, F_SXX, s)[c] = sxx;
       field(p, nxt, F_SXZ, s)[c] = sxz;
+      if (p.ill != nullptr) {
+        const float pr = __fadd_rn(szz, sxx);
+        float* ill = p.ill + s * plane_n + c;
+        *ill = __fadd_rn(*ill, __fmul_rn(pr, pr));
+      }
     }
   }
   cp_async_wait_group<0>();  // the second phase's inputs
@@ -482,8 +496,8 @@ extern "C" int elastic_forward(const float* mats, const float* prof_z,
                                int band_x_hi, float dt, float src_amp,
                                float inv_dz, float inv_dx, void* stream) {
   Params p{mats, prof_z, prof_x, stf, src_z, src_x, rxz, rec_z, rec_x, rec_w,
-           fields, psi, data, strips, S, nz, nx, nt, rec_row, rec_x0, n_rec,
-           ett_mode, dt, src_amp, inv_dz, inv_dx,
+           fields, psi, data, strips, nullptr, S, nz, nx, nt, rec_row,
+           rec_x0, n_rec, ett_mode, dt, src_amp, inv_dz, inv_dx,
            strip_geom(nz, nx, npml, n_bnd), Band{band_z_lo, band_z_hi},
            Band{band_x_lo, band_x_hi}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -501,6 +515,35 @@ extern "C" int elastic_forward(const float* mats, const float* prof_z,
                                                                cur ^ 1);
     }
     err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+// The illumination of every shot (imaging.source_illumination): all nt-1
+// steps of the fused step for all shots on `stream`, each owner adding its
+// cell's (szz + sxx)^2 after the step to `ill` (S, nz, nx), which arrives
+// zeroed; no recording, no strips, one launch a step.  `fields` and `psi`
+// as for elastic_forward (zeroed; the final fields come back in buffer
+// (nt-1) % 2).  Returns the first CUDA error (0 on success).
+extern "C" int elastic_illumination(const float* mats, const float* prof_z,
+                                    const float* prof_x, const float* stf,
+                                    const int* src_z, const int* src_x,
+                                    const float* rxz, float* fields,
+                                    float* psi, float* ill, int S, int nz,
+                                    int nx, int nt, int band_z_lo,
+                                    int band_z_hi, int band_x_lo,
+                                    int band_x_hi, float dt, float src_amp,
+                                    void* stream) {
+  Params p{mats, prof_z, prof_x, stf, src_z, src_x, rxz, nullptr, nullptr,
+           nullptr, fields, psi, nullptr, nullptr, ill, S, nz, nx, nt, 0, 0,
+           0, ETT_EXX, dt, src_amp, 0.0f, 0.0f, StripGeom{},
+           Band{band_z_lo, band_z_hi}, Band{band_x_lo, band_x_hi}};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((nx + TX - 1) / TX, (nz + TZ - 1) / TZ, S);
+  for (int it = 0; it < nt - 1; ++it) {
+    fwd_step_kernel<<<grid, kTileThreads, 0, st>>>(p, it, it & 1);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;

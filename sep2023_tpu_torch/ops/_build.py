@@ -108,10 +108,15 @@ def load() -> ctypes.CDLL:
         lib.elastic_backward.restype = I
         lib.elastic_tile_plan.argtypes = [P]
         lib.elastic_tile_plan.restype = None
-        lib.acoustic_forward.argtypes = [P] * 11 + [I] * 9 + [F, F, P]
+        lib.elastic_illumination.argtypes = [P] * 10 + [I] * 8 + [F, F, P]
+        lib.elastic_illumination.restype = I
+        lib.acoustic_forward.argtypes = [P] * 12 + [I] * 13 + [F, F, P]
         lib.acoustic_forward.restype = I
-        lib.acoustic_backward.argtypes = [P] * 20 + [I] * 10 + [F, F, P]
+        lib.acoustic_backward.argtypes = [P] * 21 + [I] * 14 + [F, F, P]
         lib.acoustic_backward.restype = I
+        for name in ("acoustic_forward_plan", "acoustic_backward_plan"):
+            getattr(lib, name).argtypes = [P]
+            getattr(lib, name).restype = I
         lib.elastic_error_string.argtypes = [I]
         lib.elastic_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -25,6 +25,12 @@ caller's order.  The strips are (S, nt-1, 3, strip_len) in the flat layout
 of `propagator._extract_strips`, the final fields (3, S, nz, nx) in AcFields
 order; kernels and plain versions share both.
 
+The kernels run one fused launch a step over the elastic kernels' tiles in
+shared memory, with the fields and what a step reads at neighbours held
+twice, and the CPML memories only in their bands
+(`cuda_engine.cpml_bands`); `state_floats_per_shot` counts what a gradient
+holds a shot.
+
 The wrappers take their plain versions only for tensors that lie on the
 CPU.  On CUDA tensors they launch the kernels or raise.  `LAUNCHES_AC` and
 `LAUNCHES_AC_BWD` count the kernel launches (`LAUNCHES_AC_STRIPS` the
@@ -47,41 +53,60 @@ from sep2023_tpu_torch.ops.cuda_engine import (PLAIN_CALLS, FastPlan,
                                                FiberSurvey, _check_model,
                                                _check_tensor, _load,
                                                _profiles, _ptr, _raise_on,
-                                               _row_args)
+                                               _row_args, band_floats,
+                                               cpml_bands)
 
-# Kernel launches made by forward_cuda_acoustic_plan: 3 per time step
-# (pressure, velocity, record), with or without strip saving, row or point
+# Kernel launches made by forward_cuda_acoustic_plan: 2 per time step (the
+# fused step, record), with or without strip saving, row or point
 # receivers.
 LAUNCHES_AC = 0
 # The part of LAUNCHES_AC made with strip saving (the gradient's and the
 # image's forward).
 LAUNCHES_AC_STRIPS = 0
 # Kernel launches made by backward_cuda_acoustic_plan,
-# reconstruct_cuda_acoustic_plan and rtm_image_time_cuda_plan: 2 a step
-# (velocity, pressure) and 1 shot sum; with a FiberSurvey 3 per time step
-# (the point injection first) and 1 shot sum.
+# reconstruct_cuda_acoustic_plan and rtm_image_time_cuda_plan: 1 a step
+# (the fused reverse step) and 1 shot sum; with a FiberSurvey 2 per time
+# step (the point injection first) and 1 shot sum.
 LAUNCHES_AC_BWD = 0
 # The part of LAUNCHES_AC_BWD made as the imaging variant.
 LAUNCHES_AC_IMG = 0
 
-N_STATE_PLANES = 7   # 3 fields + 4 CPML psi
-N_WORK_PLANES = 11   # 3 adjoint fields + 4 adjoint psi + 4 stencil cotangents
+# Planes of nz x nx a shot, as the wrappers allocate them: the 3 fields
+# twice (the kernels' double buffer, the forward's and the backward's), the
+# backward's work planes (the cotangent of p once; those of vz, vx and the
+# pressure stencils' cotangents D1, D2 twice), the per-shot gradients or
+# image and illumination; and CPML memories of each axis in band storage
+# (the forward's pressure-phase memory twice and velocity-phase one once;
+# the backward's the other way round).
+N_STATE_PLANES = 6
+N_WORK_PLANES = 9
 N_GRAD_PLANES = 3    # per-shot gradients of (lam, byc_a, byc_b)
 N_IMAGE_PLANES = 2   # per-shot image and illumination (the imaging variant)
+N_BAND_PLANES = 3
 N_CHANNELS = len(acoustic.AC_CHANNELS)
 
 
 def launches_forward_acoustic(cfg: SimConfig) -> int:
-    """Launches of one forward_cuda_acoustic_plan call on the card: 3 a
+    """Launches of one forward_cuda_acoustic_plan call on the card: 2 a
     step."""
-    return 3 * (cfg.nt - 1)
+    return 2 * (cfg.nt - 1)
 
 
 def launches_backward_acoustic(cfg: SimConfig, rs) -> int:
-    """Launches of one acoustic backward (or imaging) call on the card: 2 a
-    step for a receiver row, 3 for point receivers, and the shot sum."""
-    per_step = 3 if isinstance(rs, FiberSurvey) else 2
+    """Launches of one acoustic backward (or imaging) call on the card: 1 a
+    step for a receiver row, 2 for point receivers, and the shot sum."""
+    per_step = 2 if isinstance(rs, FiberSurvey) else 1
     return per_step * (cfg.nt - 1) + 1
+
+
+def state_floats_per_shot(cfg: SimConfig) -> int:
+    """Floats a shot's acoustic gradient holds beside its strips while the
+    backward runs: the forward's final fields, the backward's double buffer
+    of the fields, its work planes, its per-shot gradients and its CPML
+    memories in band storage."""
+    planes = acoustic.AC_N_FIELDS + N_STATE_PLANES + N_WORK_PLANES \
+        + N_GRAD_PLANES
+    return planes * cfg.nz * cfg.nx + N_BAND_PLANES * band_floats(cfg)
 
 
 def _check_inputs(plan: FastPlan, lam, rho, stf, src_z, src_x):
@@ -204,10 +229,11 @@ def forward_cuda_acoustic_plan(plan: FastPlan, lam, rho, stf, src_z, src_x,
         prof_z, prof_x = _profiles(cfg, device)
         rec = plan.receivers(device, acoustic=True)
         rec_z, rec_x = (None, None) if rec is None else rec[:2]
-        state = torch.zeros((N_STATE_PLANES, S, cfg.nz, cfg.nx),
-                            device=device, dtype=torch.float32)
-        data = torch.zeros((S, N_CHANNELS, rs.n_rec, cfg.nt), device=device,
-                           dtype=torch.float32)
+        zeros = lambda *shape: torch.zeros(shape, device=device,
+                                           dtype=torch.float32)
+        fields = zeros(2, acoustic.AC_N_FIELDS, S, cfg.nz, cfg.nx)
+        psi = zeros(N_BAND_PLANES * S * band_floats(cfg))
+        data = zeros(S, N_CHANNELS, rs.n_rec, cfg.nt)
         strips = (torch.empty((S, cfg.nt - 1, 3, propagator.strip_len(cfg)),
                               device=device, dtype=torch.float32)
                   if save_strips else None)
@@ -215,16 +241,17 @@ def forward_cuda_acoustic_plan(plan: FastPlan, lam, rho, stf, src_z, src_x,
         err = lib.acoustic_forward(
             mats.data_ptr(), prof_z.data_ptr(), prof_x.data_ptr(),
             stf.data_ptr(), *(t.data_ptr() for t in src),
-            _ptr(rec_z), _ptr(rec_x),
-            state.data_ptr(), data.data_ptr(), _ptr(strips),
-            S, cfg.nz, cfg.nx, cfg.nt, *_row_args(rs), cfg.npml,
-            cfg.n_bnd_layers, ctypes.c_float(cfg.dt),
-            ctypes.c_float(cfg.src_scale * cfg.dt), stream)
+            _ptr(rec_z), _ptr(rec_x), fields.data_ptr(), psi.data_ptr(),
+            data.data_ptr(), _ptr(strips), S, cfg.nz, cfg.nx, cfg.nt,
+            *_row_args(rs), cfg.npml, cfg.n_bnd_layers, *cpml_bands(cfg),
+            ctypes.c_float(cfg.dt), ctypes.c_float(cfg.src_scale * cfg.dt),
+            stream)
     _raise_on(lib, err, "acoustic_forward")
     LAUNCHES_AC += launches_forward_acoustic(cfg)
     if save_strips:
         LAUNCHES_AC_STRIPS += launches_forward_acoustic(cfg)
-        return data, strips, state[:3]
+        # the final fields alone, so the double buffer is freed here
+        return data, strips, fields[(cfg.nt - 1) % 2].clone()
     return data
 
 
@@ -247,10 +274,13 @@ def _backward_kernel(plan: FastPlan, lam, rho, stf, src, final, strips,
         rec = plan.receivers(device, acoustic=True)
         table = (None,) * 6 if rec is None else rec[3]
         n_inj = 0 if rec is None else table[1].shape[0]
-        fields = final.clone()
         zeros = lambda *shape: torch.zeros(shape, device=device,
                                            dtype=torch.float32)
+        fields = torch.empty((2, acoustic.AC_N_FIELDS, S, cfg.nz, cfg.nx),
+                             device=device, dtype=torch.float32)
+        fields[0].copy_(final)
         work = zeros(N_WORK_PLANES, S, cfg.nz, cfg.nx)
+        psi = zeros(N_BAND_PLANES * S * band_floats(cfg))
         acc = zeros(S, n_acc, cfg.nz, cfg.nx)
         acc_sum = torch.empty((n_acc, cfg.nz, cfg.nx), device=device,
                               dtype=torch.float32)
@@ -261,15 +291,16 @@ def _backward_kernel(plan: FastPlan, lam, rho, stf, src, final, strips,
             stf.data_ptr(), *(t.data_ptr() for t in src),
             strips.data_ptr(), d_data.data_ptr(), *(_ptr(t) for t in table),
             _ptr(img_coef), fields.data_ptr(), work.data_ptr(),
-            acc.data_ptr(), acc_sum.data_ptr(), d_stf.data_ptr(),
-            S, cfg.nz, cfg.nx, cfg.nt, *_row_args(rs), n_inj, cfg.npml,
-            cfg.n_bnd_layers, ctypes.c_float(cfg.dt),
-            ctypes.c_float(cfg.src_scale * cfg.dt), stream)
+            psi.data_ptr(), acc.data_ptr(), acc_sum.data_ptr(),
+            d_stf.data_ptr(), S, cfg.nz, cfg.nx, cfg.nt, *_row_args(rs),
+            n_inj, cfg.npml, cfg.n_bnd_layers, *cpml_bands(cfg),
+            ctypes.c_float(cfg.dt), ctypes.c_float(cfg.src_scale * cfg.dt),
+            stream)
     _raise_on(lib, err, "acoustic_backward")
     LAUNCHES_AC_BWD += launches_backward_acoustic(cfg, rs)
     if img_coef is not None:
         LAUNCHES_AC_IMG += launches_backward_acoustic(cfg, rs)
-    return acc, acc_sum, d_stf, fields
+    return acc, acc_sum, d_stf, fields[(cfg.nt - 1) % 2]
 
 
 def backward_cuda_acoustic_plan(plan: FastPlan, lam, rho, stf, src_z, src_x,

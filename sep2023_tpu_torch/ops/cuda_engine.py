@@ -69,14 +69,20 @@ LAUNCHES_BWD = 0
 # The part of LAUNCHES_BWD that injected point cotangents
 # (inject_points_kernel): 1 per time step of a FiberSurvey backward.
 LAUNCHES_BWD_FIBER = 0
+# Kernel launches made by illumination_cuda_plan: 1 a step (the fused step
+# with the illumination accumulator, no record).
+LAUNCHES_ILL = 0
 # Calls of each plain version (on CPU tensors, or by a caller comparing),
-# those of the acoustic engine (ops/cuda_acoustic.py) included.
+# those of the acoustic engine (ops/cuda_acoustic.py) and
+# imaging.source_illumination, the plain version of illumination_cuda_plan,
+# included.
 PLAIN_CALLS = {"forward_plain": 0, "forward_plain_strips": 0,
                "backward_plain": 0, "reconstruct_plain": 0,
                "forward_plain_acoustic": 0,
                "forward_plain_acoustic_strips": 0,
                "backward_plain_acoustic": 0,
-               "reconstruct_plain_acoustic": 0, "rtm_image_time_plain": 0}
+               "reconstruct_plain_acoustic": 0, "rtm_image_time_plain": 0,
+               "source_illumination": 0}
 
 # Planes of nz x nx a shot, as the wrappers allocate them: the fields twice
 # (the kernels' double buffer, the forward's and the backward's), the
@@ -631,6 +637,52 @@ def forward_cuda_plan(plan: FastPlan, lam, mu, rho, stf, src_z, src_x, rxz,
         # the final fields alone, so the double buffer is freed here
         return data, strips, fields[(cfg.nt - 1) % 2].clone()
     return data
+
+
+def illumination_cuda_plan(plan: FastPlan, lam, mu, rho, stf, src_z, src_x,
+                           rxz):
+    """Per-cell source-wavefield energy sum_t (szz + sxx)^2 of every shot
+    under a FastPlan (`imaging.source_illumination`'s route on the card):
+    (S, nz, nx), masked to the interior.  lam/mu/rho (nz, nx), stf (S, nt),
+    src_z/src_x/rxz (S,) on the padded grid.
+
+    CPU tensors run imaging.source_illumination (in their own dtype); CUDA
+    tensors (float32, contiguous) run the fused forward step with its
+    illumination accumulator, one launch a step and no recording; anything
+    else raises."""
+    global LAUNCHES_ILL
+    cfg = plan.cfg
+    if lam.device.type == "cpu":
+        # imported here: imaging imports this module's PLAIN_CALLS
+        from sep2023_tpu_torch import imaging
+        geoms = _geoms(cfg, plan.rs, src_z, src_x, rxz, lam.device,
+                       lam.dtype)
+        return imaging.source_illumination(cfg, lam, mu, rho, stf, geoms)
+    src = _check_inputs(plan, lam, mu, rho, stf, src_z, src_x, rxz)
+    device = lam.device
+    lib = _load(device)
+    S = stf.shape[0]
+    with torch.cuda.device(device):
+        mats = torch.stack(tuple(material_fields(lam, mu, rho))).contiguous()
+        prof_z, prof_x = _profiles(cfg, device)
+        zeros = lambda *shape: torch.zeros(shape, device=device,
+                                           dtype=torch.float32)
+        fields = zeros(2, 5, S, cfg.nz, cfg.nx)
+        psi = zeros(N_BAND_PLANES * S * band_floats(cfg))
+        ill = zeros(S, cfg.nz, cfg.nx)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.elastic_illumination(
+            mats.data_ptr(), prof_z.data_ptr(), prof_x.data_ptr(),
+            stf.data_ptr(), *(t.data_ptr() for t in src),
+            fields.data_ptr(), psi.data_ptr(), ill.data_ptr(),
+            S, cfg.nz, cfg.nx, cfg.nt, *cpml_bands(cfg),
+            ctypes.c_float(cfg.dt), ctypes.c_float(cfg.src_scale * cfg.dt),
+            stream)
+    _raise_on(lib, err, "elastic_illumination")
+    LAUNCHES_ILL += cfg.nt - 1
+    mz, mx = propagator._interior_mask(cfg, device=device,
+                                       dtype=torch.float32)
+    return ill * (mz * mx)
 
 
 def _backward_kernel(plan: FastPlan, lam, mu, rho, stf, src, final, strips,

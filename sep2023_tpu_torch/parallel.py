@@ -74,15 +74,13 @@ def state_bytes_per_shot(cfg: SimConfig, acoustic: bool = False,
     backward's double buffer of the fields, its 15 work planes and 5
     per-shot gradients, 35 planes of nz x nx, and 6 planes of CPML memory of
     each axis in band storage (6.8 MB a shot at 165x265, 240 MB at
-    814x2064, in float32).  Acoustic: the forward's state, the backward's
-    copy of the final fields, its work planes and the per-shot gradients,
-    24 planes."""
-    if not acoustic:
-        return cuda_engine.state_floats_per_shot(cfg) * itemsize
-    ca = cuda_acoustic
-    planes = (ca.N_STATE_PLANES + acoustic_mod.AC_N_FIELDS + ca.N_WORK_PLANES
-              + ca.N_GRAD_PLANES)
-    return planes * cfg.nz * cfg.nx * itemsize
+    814x2064, in float32).  Acoustic (`cuda_acoustic.state_floats_per_shot`):
+    the forward's final fields, the backward's double buffer of the fields,
+    its 9 work planes and 3 per-shot gradients, 21 planes, and 3 planes of
+    CPML memory of each axis in band storage."""
+    if acoustic:
+        return cuda_acoustic.state_floats_per_shot(cfg) * itemsize
+    return cuda_engine.state_floats_per_shot(cfg) * itemsize
 
 
 def hbm_budget_bytes(device=None) -> int:

@@ -76,6 +76,50 @@ TILE_EDGE_CASES = {
 }
 
 
+# The same for the fused acoustic kernels (csrc/acoustic_fwd.cu,
+# csrc/acoustic_bwd.cu, on the same tiles): grid sides that are not
+# multiples of the tile, a grid under one tile, a CPML band wider than a
+# tile, sources and a receiver row's first and last receivers on tile edges,
+# and point receivers on the cells either side of tile edges with some of
+# them visited two to four times.  Each: (physical nz, nx, npml, nt, padded
+# (src_z, src_x) of each shot, receivers ("row", rec_row, rec_x0, n_rec) or
+# ("points", rec_z, rec_x)), padded-grid indices; 20 m, 2 ms, 10 Hz, the
+# anomaly model with lam = rho vp^2 (acoustic_args).  On each the tight
+# interior shrunk by AC_INTERIOR + GRAD_MARGIN cells, where the gradients
+# are compared, holds cells.  The adjoint test draws from TILE_EDGE_SEED.
+AC_TILE_EDGE_CASES = {
+    "ragged tiles": (45, 61, 10, 260, ((11, 20), (11, 60)),
+                     ("row", 48, 20, 41)),
+    "grid under one tile": (9, 22, 3, 200, ((4, 8), (4, 18)),
+                            ("row", 9, 4, 20)),
+    "band wider than a tile": (30, 50, 40, 260, ((41, 60), (41, 90)),
+                               ("row", 60, 45, 40)),
+    "source and row ends on tile edges": (
+        44, 76, 10, 260, ((16, 32), (15, 63), (32, 31)),
+        ("row", 48, 32, 32)),
+    "duplicate points on tile edges": (
+        44, 76, 10, 260, ((11, 40), (11, 70)),
+        ("points",
+         np.concatenate([np.repeat(_EDGES_Z, len(_EDGES_X)),
+                         [15, 15, 16, 48, 48, 48]]),
+         np.concatenate([np.tile(_EDGES_X, len(_EDGES_Z)),
+                         [31, 32, 31, 64, 64, 64]]))),
+}
+
+
+def ac_tile_edge_problem(name, *, device):
+    """An AC_TILE_EDGE_CASES case: (cfg, RowSurvey or FiberSurvey, args)
+    with args the inputs of forward_cuda_acoustic_plan after the plan."""
+    nz, nx, npml, nt, src, rec = AC_TILE_EDGE_CASES[name]
+    src_z, src_x = (np.array(a) for a in zip(*src))
+    cfg, args = _problem(nz, nx, npml, nt, len(src_z), "exx", 20.0, 0.002,
+                         10.0, device)
+    args = acoustic_args((*args[:4], src_z, src_x, None))
+    if rec[0] == "row":
+        return cfg, cuda_engine.RowSurvey(*rec[1:]), args
+    return cfg, cuda_engine.make_fiber_survey(*rec[1:]), args
+
+
 def tile_edge_problem(name, *, device):
     """A TILE_EDGE_CASES case: (cfg, RowSurvey or FiberSurvey, args)."""
     nz, nx, npml, nt, channel, src, rec = TILE_EDGE_CASES[name]

@@ -497,8 +497,10 @@ def test_wrappers_validate_inputs():
                                        ((560, 720), 2001),
                                        ((814, 2064), 2001)])
 def test_acoustic_memory_model(shape, nt):
-    """3 strip fields of 5 and 24 planes of 44 a shot, as the acoustic
-    wrappers allocate them; auto_shot_chunk divides the budget by both."""
+    """3 strip fields of 5, and 21 planes (the final fields, the fields
+    twice, 9 work planes, 3 gradients) and 3 band planes of CPML memory of
+    each axis, as the acoustic wrappers allocate them; auto_shot_chunk
+    divides the budget by both."""
     nz, nx = shape
     cfg = tcfg.SimConfig(nz=nz, nx=nx, dz=10.0, dx=10.0, nt=nt, dt=0.001,
                          f0=10.0, npml=32)
@@ -506,8 +508,11 @@ def test_acoustic_memory_model(shape, nt):
     planes = tpar.state_bytes_per_shot(cfg, acoustic=True)
     assert strips == (nt - 1) * 3 * 2 * 5 * (nz + nx) * 4
     assert 5 * strips == 3 * tpar.strip_bytes_per_shot(cfg)
-    assert planes == (ca.N_STATE_PLANES + 3 + ca.N_WORK_PLANES
-                      + ca.N_GRAD_PLANES) * nz * nx * 4 == 24 * nz * nx * 4
+    band = 2 * 32 * nx + nz * 2 * 32
+    assert planes == ((3 + ca.N_STATE_PLANES + ca.N_WORK_PLANES
+                       + ca.N_GRAD_PLANES) * nz * nx
+                      + ca.N_BAND_PLANES * band) * 4 \
+        == (21 * nz * nx + 3 * band) * 4
     assert tpar.strip_bytes_per_shot(cfg, acoustic=True, itemsize=8) == \
         2 * strips
     per = strips + planes

@@ -7,11 +7,14 @@ residual), on receiver rows (ROW_CASES) and on point receivers
 (FIBER_CASES: a weighted arc fiber, a column, duplicate points); and the
 acoustic kernels on AC_CASES (a row, duplicate points, a column) to the same
 tolerances, with the image and illumination of the imaging variant (5e-4).
-The fused elastic kernels also on TILE_EDGE_CASES, where the edges of their
-tiles can bite: data, strips and final fields bitwise equal to plain,
-gradients, a second backward bitwise, the reconstruction residual equal to
-plain's.  These mirror phases 3, 7-10, 12, 17 and 20 of chip_smoke.py; they
-need a CUDA device and nvcc, and skip without a card:
+The fused elastic kernels also on TILE_EDGE_CASES and the fused acoustic
+kernels on AC_TILE_EDGE_CASES, where the edges of their tiles can bite:
+data, strips and final fields bitwise equal to plain, gradients, a second
+backward bitwise, the reconstruction residual equal to plain's, the image
+and illumination.  The elastic illumination kernel (the fused step with its
+accumulator) bitwise equal to imaging.source_illumination.  These mirror
+phases 3, 7-10, 12, 17, 19e, 20 and 21 of chip_smoke.py; they need a CUDA
+device and nvcc, and skip without a card:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -19,12 +22,15 @@ import numpy as np
 import pytest
 import torch
 
+from sep2023_tpu_torch import imaging
 from sep2023_tpu_torch.ops import cuda_acoustic, cuda_engine
-from sep2023_tpu_torch.testing import (AC_CASES, AC_INTERIOR, DOT_TOL,
+from sep2023_tpu_torch.testing import (AC_CASES, AC_INTERIOR,
+                                       AC_TILE_EDGE_CASES, DOT_TOL,
                                        FIBER_CASES, FWD_TOL, GRAD_TOL,
                                        RECON_RATIO, ROW_CASES,
                                        TILE_EDGE_CASES, TILE_EDGE_SEED,
                                        ac_perturbed_cotangent, ac_problem,
+                                       ac_tile_edge_problem,
                                        adjoint_gap, fiber_problem,
                                        grad_errors, max_rel,
                                        perturbed_cotangent,
@@ -170,7 +176,7 @@ def test_fiber_backward_matches_plain(cuda, case):
 @pytest.mark.parametrize("case", list(AC_CASES))
 def test_acoustic_forward_matches_plain(cuda, case):
     """acoustic_forward with and without strips: data, strips and final
-    fields (2e-5), three launches a step, the same data either way."""
+    fields (2e-5), two launches a step, the same data either way."""
     cfg, rs, args = ac_problem(case, device=cuda)
     plan = cuda_engine.plan_for(cfg, rs)
     before = (cuda_acoustic.LAUNCHES_AC, cuda_acoustic.LAUNCHES_AC_STRIPS)
@@ -178,7 +184,7 @@ def test_acoustic_forward_matches_plain(cuda, case):
                                                    save_strips=True)
     data = cuda_acoustic.forward_cuda_acoustic_plan(plan, *args)
     torch.cuda.synchronize()
-    steps = 3 * (cfg.nt - 1)
+    steps = 2 * (cfg.nt - 1)
     assert steps == cuda_acoustic.launches_forward_acoustic(cfg)
     assert (cuda_acoustic.LAUNCHES_AC, cuda_acoustic.LAUNCHES_AC_STRIPS) == \
         (before[0] + 2 * steps, before[1] + steps)
@@ -291,3 +297,87 @@ def test_tile_edges_backward(cuda, case):
     assert max(err) < GRAD_TOL, err
     _, _, gap = adjoint_gap(cfg, rs, args, TILE_EDGE_SEED)
     assert gap <= DOT_TOL
+
+
+@pytest.mark.parametrize("case", list(AC_TILE_EDGE_CASES))
+def test_ac_tile_edges_forward_bitwise(cuda, case):
+    """The fused acoustic forward where tile edges bite: data, strips and
+    final fields bitwise equal to plain, the same data without strips, two
+    launches a step, and the reconstruction residual equal to the plain f32
+    one."""
+    cfg, rs, args = ac_tile_edge_problem(case, device=cuda)
+    plan = cuda_engine.plan_for(cfg, rs)
+    before = cuda_acoustic.LAUNCHES_AC
+    out = cuda_acoustic.forward_cuda_acoustic_plan(plan, *args,
+                                                   save_strips=True)
+    data = cuda_acoustic.forward_cuda_acoustic_plan(plan, *args)
+    torch.cuda.synchronize()
+    assert cuda_acoustic.LAUNCHES_AC - before == 4 * (cfg.nt - 1)
+    ref = cuda_acoustic.forward_plain_acoustic_strips(cfg, rs, *args)
+    assert all(float(ref[0][:, c].abs().max()) > 1e-3 for c in range(3))
+    assert torch.equal(data, out[0])
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    _, strips, final = out
+    kern = reconstruction_residual(
+        cfg, cuda_acoustic.reconstruct_cuda_acoustic_plan(
+            plan, *args, final, strips), data)
+    plain = reconstruction_residual(
+        cfg, cuda_acoustic.reconstruct_plain_acoustic(
+            cfg, rs, *args, final, strips), data)
+    assert kern == plain, (kern, plain)
+
+
+@pytest.mark.parametrize("case", list(AC_TILE_EDGE_CASES))
+def test_ac_tile_edges_backward(cuda, case):
+    """The fused acoustic backward where tile edges bite: gradients on the
+    tight interior less 2 within GRAD_TOL, a second backward bitwise, the
+    launch count, the adjoint identity, and the imaging variant's image and
+    illumination within GRAD_TOL."""
+    cfg, rs, args = ac_tile_edge_problem(case, device=cuda)
+    plan = cuda_engine.plan_for(cfg, rs)
+    syn, strips, final = cuda_acoustic.forward_cuda_acoustic_plan(
+        plan, *args, save_strips=True)
+    cot = ac_perturbed_cotangent(cfg, rs, args, syn)
+    res = (*args, final, strips, cot)
+    before = cuda_acoustic.LAUNCHES_AC_BWD
+    out = cuda_acoustic.backward_cuda_acoustic_plan(plan, *res)
+    again = cuda_acoustic.backward_cuda_acoustic_plan(plan, *res)
+    torch.cuda.synchronize()
+    assert cuda_acoustic.LAUNCHES_AC_BWD - before == \
+        2 * cuda_acoustic.launches_backward_acoustic(cfg, rs)
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+    ref = cuda_acoustic.backward_plain_acoustic(cfg, rs, *res)
+    assert all(float(a.abs().max()) > 0 for a in ref)
+    err = grad_errors(out, ref, cfg, AC_INTERIOR)
+    assert max(err) < GRAD_TOL, err
+    _, _, gap = adjoint_gap(cfg, rs, args, TILE_EDGE_SEED)
+    assert gap <= DOT_TOL
+    lam, rho, stf, src_z, src_x = args
+    vp = torch.sqrt(lam / rho).contiguous()
+    img, ill = cuda_acoustic.image_cuda_acoustic_plan(
+        plan, vp, rho, stf, src_z, src_x, final, strips, -cot)
+    img_p, ill_p = cuda_acoustic.rtm_image_time_plain(
+        cfg, rs, vp, rho, stf, src_z, src_x, -cot)
+    assert float(img_p.abs().max()) > 0 and float(ill_p.max()) > 0
+    assert max_rel(img, img_p) < GRAD_TOL and max_rel(ill, ill_p) < GRAD_TOL
+
+
+@pytest.mark.parametrize("case", ["reference shape nt=301", "small ezz"])
+def test_illumination_kernel_bitwise(cuda, case):
+    """illumination_cuda_plan (the fused elastic step with its illumination
+    accumulator, one launch a step) bitwise equal to
+    imaging.source_illumination on the card, shot by shot."""
+    cfg, rs, args = row_problem(*ROW_CASES[case], device=cuda)
+    plan = cuda_engine.plan_for(cfg, rs)
+    before = cuda_engine.LAUNCHES_ILL
+    ill = cuda_engine.illumination_cuda_plan(plan, *args)
+    torch.cuda.synchronize()
+    assert cuda_engine.LAUNCHES_ILL - before == cfg.nt - 1
+    lam, mu, rho, stf, src_z, src_x, rxz = args
+    geoms = cuda_engine._geoms(cfg, rs, src_z, src_x, rxz, lam.device,
+                               lam.dtype)
+    ref = imaging.source_illumination(cfg, lam, mu, rho, stf, geoms)
+    assert float(ref.max()) > 0
+    assert torch.equal(ill, ref)

@@ -10,6 +10,12 @@
   shots.
 * The package data of pyproject.toml covers every source the kernel build
   compiles or hashes.
+* F7: `rtm --physics elastic`'s illumination has a kernel route,
+  cuda_engine.illumination_cuda_plan.  On CPU tensors it runs
+  imaging.source_illumination, counted in PLAIN_CALLS, equal to the JAX
+  package's source_illumination shot by shot to 1e-12 (float64); on a
+  device that is neither the CPU nor CUDA it raises and runs no plain
+  version.
 """
 import fnmatch
 import os
@@ -22,13 +28,14 @@ import pytest
 import scipy.io
 import torch
 
+from sep2023_tpu import imaging as jimaging
 from sep2023_tpu import optimize as joptimize
 from sep2023_tpu import parallel as jparallel
 from sep2023_tpu.config import SimConfig as JSimConfig
 from sep2023_tpu.config import Survey as JSurvey
-from sep2023_tpu_torch import cli, optimize, parallel
+from sep2023_tpu_torch import cli, imaging, optimize, parallel
 from sep2023_tpu_torch.config import SimConfig, Survey, ricker
-from sep2023_tpu_torch.ops import _build
+from sep2023_tpu_torch.ops import _build, cuda_engine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -232,3 +239,88 @@ def test_package_data_covers_the_kernel_sources():
     for f in files:
         rel = f.relative_to(pkg).as_posix()
         assert any(fnmatch.fnmatch(rel, g) for g in globs), rel
+
+
+def _illumination_problem():
+    """2 shots (source moment ratios 1 and 1.4) on a 46x60 grid (npml 8),
+    nt=110, a receiver row, numpy float64: (kw, survey, lam, mu, rho,
+    stf)."""
+    npml = 8
+    kw = dict(nz=30 + 2 * npml, nx=44 + 2 * npml, dz=20.0, dx=20.0, nt=110,
+              dt=0.002, f0=10.0, npml=npml)
+    rng = np.random.default_rng(9)
+    vp = 3000.0 + 40.0 * rng.standard_normal((kw["nz"], kw["nx"]))
+    vp[npml + 16:npml + 22, npml + 14:npml + 30] += 300.0
+    vs = vp / np.sqrt(2.2)
+    rho = 2400.0 + 10.0 * rng.standard_normal(vp.shape)
+    survey = dict(src_z=np.array([2, 2]), src_x=np.array([10, 30]),
+                  rec_z=np.full(28, 14), rec_x=np.arange(8, 36),
+                  src_rxz=np.array([1.0, 1.4]))
+    stf = np.stack([ricker(10.0, 110, 0.002), 0.5 * ricker(12.0, 110, 0.002)])
+    return (kw, survey, (vp ** 2 - 2 * vs ** 2) * rho, vs ** 2 * rho, rho,
+            stf)
+
+
+def test_illumination_cuda_plan_matches_jax_on_cpu():
+    """illumination_cuda_plan on CPU tensors (float64): one PLAIN_CALLS
+    entry, no launch, and each shot's plane equal to the JAX package's
+    imaging.source_illumination to 1e-12 of its max."""
+    kw, sv, lam, mu, rho, stf = _illumination_problem()
+    cfg, npml = SimConfig(**kw), kw["npml"]
+    plan = cuda_engine.plan_fast_path(cfg, sv["rec_z"] + npml,
+                                      sv["rec_x"] + npml)
+    before = (cuda_engine.PLAIN_CALLS["source_illumination"],
+              cuda_engine.LAUNCHES_ILL)
+    # the moment ratios as a Survey holds them (float32), as `rtm` passes
+    # them and as the JAX package's geometry has them
+    ill = cuda_engine.illumination_cuda_plan(
+        plan, *(_f64(a) for a in (lam, mu, rho, stf)), sv["src_z"] + npml,
+        sv["src_x"] + npml, Survey(**sv).src_rxz)
+    assert (cuda_engine.PLAIN_CALLS["source_illumination"],
+            cuda_engine.LAUNCHES_ILL) == (before[0] + 1, before[1])
+    assert ill.dtype == torch.float64 and ill.shape == (2, cfg.nz, cfg.nx)
+    jgeoms = jparallel.survey_to_geoms(JSurvey(**sv), npml,
+                                       dtype=jnp.float64)
+    for i in range(2):
+        g = type(jgeoms)(*(None if a is None else a[i] for a in jgeoms))
+        ref = np.asarray(jimaging.source_illumination(
+            JSimConfig(**kw), jnp.asarray(lam), jnp.asarray(mu),
+            jnp.asarray(rho), jnp.asarray(stf[i]), g))
+        assert ref.max() > 0
+        err = np.abs(ill[i].numpy() - ref).max() / ref.max()
+        assert err < 1e-12, (i, err)
+
+
+@pytest.mark.parametrize("library", ["build fails", "built"])
+def test_illumination_cuda_plan_raises_off_cpu_and_cuda(monkeypatch,
+                                                        library):
+    """On a device that is neither the CPU nor CUDA (meta)
+    illumination_cuda_plan reaches the kernel library and raises: the
+    build's failure, or, with a library in hand, the device check; it runs
+    no plain version and counts no launch."""
+    def broken_build():
+        raise RuntimeError("nvcc failed (simulated)")
+
+    def no_plain(*a, **k):
+        raise AssertionError("a CUDA entry point ran a plain version")
+
+    monkeypatch.setattr(_build, "_LIB", None)
+    if library == "build fails":
+        monkeypatch.setattr(_build, "build", broken_build)
+        exc, match = RuntimeError, "simulated"
+    else:
+        monkeypatch.setattr(_build, "load", lambda: object())
+        exc, match = ValueError, "CPU or CUDA tensors"
+    monkeypatch.setattr(imaging, "source_illumination", no_plain)
+    kw, sv, *_ = _illumination_problem()
+    cfg, npml = SimConfig(**kw), kw["npml"]
+    plan = cuda_engine.plan_fast_path(cfg, sv["rec_z"] + npml,
+                                      sv["rec_x"] + npml)
+    meta = lambda *s_: torch.zeros(s_, device="meta")
+    before = cuda_engine.LAUNCHES_ILL
+    with pytest.raises(exc, match=match):
+        cuda_engine.illumination_cuda_plan(
+            plan, meta(cfg.nz, cfg.nx), meta(cfg.nz, cfg.nx),
+            meta(cfg.nz, cfg.nx), meta(2, cfg.nt), sv["src_z"] + npml,
+            sv["src_x"] + npml, sv["src_rxz"])
+    assert cuda_engine.LAUNCHES_ILL == before
