@@ -9,7 +9,11 @@ the reference workload, `invert` at 560x720, a chunked Marmousi-scale
 gradient at 814x2064, the curved-fiber inversion of
 examples/das_fwi_torch.py), checks the ElasticPropagator API, and prints
 the device-time breakdown of a reference forward, a reference gradient, a
-reference acoustic gradient and two large-grid gradients (torch.profiler).
+reference acoustic gradient, two large-grid gradients and a fiber gradient
+at examples/das_fwi_torch.py's shapes (torch.profiler).  The elastic
+forward is nt launches of one kernel, recording inside its fused step and
+in a record-only launch after the last step; every phase that runs it
+checks that count.
 The two large main paths are also held against the plain versions at their
 own shapes (nt=2001, the main path's survey), and the 54-shot chunk of the
 560x720 one, whose strip offsets pass 2^32, against the same shots run
@@ -180,6 +184,30 @@ def counts_are(got, want):
     return got == {k: want.get(k, 0) for k in COUNTERS}
 
 
+def forward_launches(cfg):
+    """Launches of one elastic forward: nt, the nt-1 fused steps, each
+    recording the state it reads, and the record-only launch."""
+    n = cuda_engine.launches_forward(cfg)
+    check(n == cfg.nt, f"launches_forward gives {n} for nt={cfg.nt}")
+    return n
+
+
+def forward_backward_counts(cfg, rs, eng):
+    """The launch counters of one forward with strips and one backward of
+    engine `eng` (ELASTIC or ACOUSTIC) on survey rs."""
+    if eng.acoustic:
+        fwd = cuda_acoustic.launches_forward_acoustic(cfg)
+        return {"LAUNCHES_AC": fwd, "LAUNCHES_AC_STRIPS": fwd,
+                "LAUNCHES_AC_BWD":
+                    cuda_acoustic.launches_backward_acoustic(cfg, rs)}
+    fiber = isinstance(rs, cuda_engine.FiberSurvey)
+    fwd = forward_launches(cfg)
+    return {"LAUNCHES": fwd, "LAUNCHES_STRIPS": fwd,
+            "LAUNCHES_FIBER": 1 if fiber else 0,
+            "LAUNCHES_BWD": cuda_engine.launches_backward(cfg, rs),
+            "LAUNCHES_BWD_FIBER": cfg.nt - 1 if fiber else 0}
+
+
 def check_counts(label, got, want, plain_calls):
     """The launch counters equal `want` (a name missing there must be 0)
     and no plain version ran."""
@@ -247,6 +275,15 @@ def tile_plan():
     return tuple(plan)
 
 
+def elastic_forward_blocks():
+    """Blocks of fwd_step_kernel an SM of this device holds, as the
+    library has it."""
+    out = (ctypes.c_int * 1)()
+    err = _build.load().elastic_forward_plan(out)
+    check(err == 0, f"elastic_forward_plan: CUDA error {err}")
+    return out[0]
+
+
 def acoustic_plan(kind):
     """(static shared memory a block in bytes, blocks an SM of this device)
     of the fused acoustic `kind` kernel ('forward' or 'backward'), as the
@@ -266,6 +303,10 @@ def phase_build():
     print(f"[2 build] fused elastic kernels: {tz}x{tx} tiles, {threads} "
           f"threads a block, shared memory a block {fwd_smem} B (forward, "
           f"static) and {bwd_smem} B (backward, dynamic)")
+    fwd_blocks = elastic_forward_blocks()
+    print(f"[2 build] fused elastic forward (fwd_step_kernel, recording "
+          f"inside): {fwd_blocks} blocks an SM on "
+          f"{torch.cuda.get_device_name(0)}")
     for kind, kernel in (("forward", "ac_fwd_step_kernel"),
                          ("backward", "ac_bwd_step_kernel")):
         smem, blocks = acoustic_plan(kind)
@@ -276,7 +317,7 @@ def phase_build():
     # ptxas -v: "Function properties for <mangled name>", then "N bytes
     # stack frame, N bytes spill stores, N bytes spill loads" and "Used N
     # registers, ..." for that kernel
-    name, spills = None, ""
+    name, spills, fwd_spills = None, "", None
     for line in _build.build_log(path).read_text().splitlines():
         m = re.search(r"Function properties for .*?(?<=\d)([a-z_]+_kernel)E",
                       line)
@@ -287,7 +328,13 @@ def phase_build():
         elif "Used" in line and name:
             print(f"[2 build] {name}: {line.split(':', 1)[1].strip()}; "
                   f"{spills}")
+            if name == "fwd_step_kernel":
+                fwd_spills = spills
             name = None
+    # __launch_bounds__(256, 3): at least 3 blocks an SM, and no spills
+    check(fwd_blocks >= 3, f"fwd_step_kernel at {fwd_blocks} blocks an SM")
+    check(fwd_spills is not None and "0 bytes spill stores, 0 bytes spill "
+          "loads" in fwd_spills, f"fwd_step_kernel spills: {fwd_spills}")
 
 
 def phase_kernel_vs_plain(dev):
@@ -305,7 +352,11 @@ def phase_kernel_vs_plain(dev):
 
     cfg, rs, inputs = reference_problem(dev)
     plan = cuda_engine.plan_for(cfg, rs)
+    reset_counts()
     out = cuda_engine.forward_cuda_plan(plan, *inputs)
+    counts, _ = read_counts()
+    check(counts_are(counts, {"LAUNCHES": forward_launches(cfg)}),
+          f"reference workload: forward launch counters {counts}")
     ref = cuda_engine.forward_plain(cfg, rs, *inputs)
     rel, abs_err = max_rel(out, ref)
     check(max(rel) < TOL_LONG, f"reference workload: {rel} >= {TOL_LONG}")
@@ -315,7 +366,8 @@ def phase_kernel_vs_plain(dev):
                        warm=False)
     print(f"[3 kernel vs plain] reference workload ({cfg.nz}x{cfg.nx}, "
           f"nt={cfg.nt}, 19 shots): max rel err per channel {rel} < "
-          f"{TOL_LONG}, max abs err {abs_err}; per forward, CUDA events: "
+          f"{TOL_LONG}, max abs err {abs_err}; {forward_launches(cfg)} "
+          f"launches; per forward, CUDA events: "
           f"kernel {kernel_ms:.3f} ms (mean of 5), plain {plain_ms:.3f} ms "
           f"(1 run after the comparison's)")
     return abs_err, kernel_ms, plain_ms, max(rel)
@@ -329,7 +381,7 @@ def phase_main_path(cfg, plain_ms):
         launches = counts["LAUNCHES"]
         # the command's warm-up forward and its timed one
         check_counts("[4 main path] forward", counts,
-                     {"LAUNCHES": 2 * cuda_engine.launches_forward(cfg)},
+                     {"LAUNCHES": 2 * forward_launches(cfg)},
                      plain_calls)
         check(data.device.type == "cuda", "forward did not run on the card")
         out = data.cpu().numpy()
@@ -396,7 +448,12 @@ def phase_strips_vs_plain(dev):
 
     cfg, rs, inputs = reference_problem(dev)
     plan = cuda_engine.plan_for(cfg, rs)
+    reset_counts()
     out = cuda_engine.forward_cuda_plan(plan, *inputs, save_strips=True)
+    counts, _ = read_counts()
+    fwd = forward_launches(cfg)
+    check(counts_are(counts, {"LAUNCHES": fwd, "LAUNCHES_STRIPS": fwd}),
+          f"reference workload: strips launch counters {counts}")
     ref = cuda_engine.forward_plain_strips(cfg, rs, *inputs)
     d, s, f = strip_errors(out, ref)
     check(max(d + s + f) < TOL_LONG,
@@ -425,6 +482,7 @@ def _backward_pair(cfg, rs, inputs):
     fields and cotangent (the L2 residual of a model with lam raised by
     3%)."""
     plan = cuda_engine.plan_for(cfg, rs)
+    reset_counts()
     syn, strips, final = cuda_engine.forward_cuda_plan(plan, *inputs,
                                                        save_strips=True)
     ett = float(syn[:, 3].abs().max())
@@ -432,8 +490,15 @@ def _backward_pair(cfg, rs, inputs):
     d = perturbed_cotangent(cfg, rs, inputs, syn)
     check(float(d.abs().max()) > 1e-3 * ett, "the cotangent is round-off")
     res = (*inputs, final, strips, d)
-    return res, cuda_engine.backward_cuda_plan(plan, *res), \
-        cuda_engine.backward_plain(cfg, rs, *res), ett
+    out = cuda_engine.backward_cuda_plan(plan, *res)
+    counts, _ = read_counts()
+    # the forward with strips, the cotangent's forward, the backward
+    want = forward_backward_counts(cfg, rs, ELASTIC)
+    want["LAUNCHES"] *= 2
+    want["LAUNCHES_FIBER"] *= 2
+    check(counts_are(counts, want), f"forward, backward launch counters "
+          f"{counts}, expected {want}")
+    return res, out, cuda_engine.backward_plain(cfg, rs, *res), ett
 
 
 def phase_backward_vs_plain(dev):
@@ -520,7 +585,7 @@ def _invert(label, argv, cfg, rs, S, niter):
         hist = np.loadtxt(os.path.join(d, "Results", "loss.txt"), ndmin=2)
     n = out["n_evals"]
     chunks = len(parallel._chunks(S, out["shot_chunk"]))
-    fwd = cuda_engine.launches_forward(cfg)
+    fwd = forward_launches(cfg)
     bwd = cuda_engine.launches_backward(cfg, rs)
     # the twin data: one forward a chunk; an evaluation: a forward with
     # strips and a backward a chunk
@@ -562,7 +627,7 @@ def _kernel_case(label, cfg, rs, inputs, seed=7):
     each call.  Returns its printed summary."""
     steps = cfg.nt - 1
     fiber = isinstance(rs, cuda_engine.FiberSurvey)
-    fwd = cuda_engine.launches_forward(cfg)
+    fwd = forward_launches(cfg)
     bwd = cuda_engine.launches_backward(cfg, rs)
     plan = cuda_engine.plan_for(cfg, rs)
     reset_counts()
@@ -570,7 +635,7 @@ def _kernel_case(label, cfg, rs, inputs, seed=7):
     data = cuda_engine.forward_cuda_plan(plan, *inputs)
     counts, _ = read_counts()
     check(counts_are(counts, {"LAUNCHES": 2 * fwd, "LAUNCHES_STRIPS": fwd,
-                              "LAUNCHES_FIBER": 2 * steps if fiber else 0}),
+                              "LAUNCHES_FIBER": 2 if fiber else 0}),
           f"{label}: forward launch counters {counts}")
     check(torch.equal(data, out[0]), f"{label}: strip saving changed the data")
     ref = cuda_engine.forward_plain_strips(cfg, rs, *inputs)
@@ -607,8 +672,8 @@ def _kernel_case(label, cfg, rs, inputs, seed=7):
             f"(d_lam, d_mu, d_rho, d_stf) {err} < {GRAD_TOL}; a second "
             f"backward bitwise equal; reconstruction residual / peak |pr| "
             f"{kern:.6e}, equal to plain f32; adjoint gap {gap:.3e} <= "
-            f"{DOT_TOL}; launches a forward {fwd}"
-            f"{f' (record_points {steps})' if fiber else ''}, a backward "
+            f"{DOT_TOL}; launches a forward {fwd} (the last recording "
+            f"only), a backward "
             f"{bwd}{f' (inject_points {steps})' if fiber else ''}; max |ett| "
             f"{ett:.6e}")
 
@@ -648,10 +713,11 @@ def das_fwi_problem(dev):
 
 
 def phase_fiber_vs_plain(dev):
-    """K1-fiber: record_points_kernel and inject_points_kernel against the
-    plain versions on every FIBER_CASES problem and at the shapes of the
-    fiber main path (examples/das_fwi_torch.py), where they are also timed:
-    returns that case's (forward, backward) numbers."""
+    """K1-fiber: the point recording of the fused forward and
+    inject_points_kernel against the plain versions on every FIBER_CASES
+    problem and at the shapes of the fiber main path
+    (examples/das_fwi_torch.py), where they are also timed: returns that
+    case's (forward, backward) numbers."""
     for name in FIBER_CASES:
         _fiber_case(name, *fiber_problem(name, device=dev))
     problem = das_fwi_problem(dev)
@@ -775,6 +841,7 @@ def hold_against_plain(tag, cfg, rs, inputs, tol, silent_samples=20,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
+    reset_counts()
     out = eng.forward(plan, *inputs, save_strips=True)
     data, strips, final = out
     d_data = data.clone()
@@ -782,6 +849,10 @@ def hold_against_plain(tag, cfg, rs, inputs, tol, silent_samples=20,
     g = eng.backward(plan, *res)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
+    counts, _ = read_counts()
+    want = forward_backward_counts(cfg, rs, eng)
+    check(counts_are(counts, want),
+          f"{tag} launch counters {counts}, expected {want}")
     assumed = assumed_bytes(cfg, S, eng)
     ett = data[:, eng.arrival_channel].abs()
     check(float(ett.max()) > 1e-6, f"{tag} no arrivals at the receivers")
@@ -833,7 +904,8 @@ def hold_against_plain(tag, cfg, rs, inputs, tol, silent_samples=20,
           f"gradients {eng.grads} {err} < {GRAD_TOL}, a second backward "
           f"bitwise equal; reconstruction residual / peak |pr| kernel "
           f"{kern:.6e}, plain f32 {plain:.6e}; max |"
-          f"{'pr' if eng.acoustic else 'ett'}| {float(ett.max()):.6e}")
+          f"{'pr' if eng.acoustic else 'ett'}| {float(ett.max()):.6e}; "
+          f"launches {want}")
     print(f"{tag} CUDA events: forward with strips kernel {fwd_ms:.3f} ms "
           f"(mean of 3, {cells / fwd_ms / 1e6:.2f} GCell/s), plain "
           f"{fwd_plain:.3f} ms (the comparison's run), bound {fb:.3f} ms "
@@ -998,7 +1070,7 @@ def phase_marmousi_chunked(dev, nz=750, nx=2000, nt=2001, S=8, chunk=2):
     counts, plain_calls = read_counts()
     peak = torch.cuda.max_memory_allocated()
     rs = parallel._cuda_plan(cfg, survey)[0].rs
-    fwd_n = cuda_engine.launches_forward(cfg)
+    fwd_n = forward_launches(cfg)
     bwd_n = cuda_engine.launches_backward(cfg, rs)
     want = {"LAUNCHES": fwd_n * n_chunks * 2,
             "LAUNCHES_STRIPS": fwd_n * n_chunks,
@@ -1040,7 +1112,7 @@ def phase_fiber_main_path(dev):
     """examples/das_fwi_torch.py's main with maxiter=3 on the card."""
     cfg, rs, _ = das_fwi_problem(dev)
     steps = cfg.nt - 1
-    fwd = cuda_engine.launches_forward(cfg)
+    fwd = forward_launches(cfg)
     bwd = cuda_engine.launches_backward(cfg, rs)
     with tempfile.TemporaryDirectory() as d:
         reset_counts()
@@ -1050,9 +1122,10 @@ def phase_fiber_main_path(dev):
         seconds = time.perf_counter() - t0
         counts, plain_calls = read_counts()
     # the twin data: one forward; an evaluation: a forward with strips and
-    # a backward, each with one point launch a step
+    # a backward; a forward records its points inside its fused steps and
+    # in one record-only launch, a backward injects them in a launch a step
     want = {"LAUNCHES": fwd * (1 + n), "LAUNCHES_STRIPS": fwd * n,
-            "LAUNCHES_FIBER": steps * (1 + n),
+            "LAUNCHES_FIBER": 1 + n,
             "LAUNCHES_BWD": bwd * n,
             "LAUNCHES_BWD_FIBER": steps * n}
     check_counts("[16 main path, fiber]", counts, want, plain_calls)
@@ -1061,7 +1134,7 @@ def phase_fiber_main_path(dev):
     print(f"[16 main path, fiber] das_fwi_torch.main(maxiter=3): gauge "
           f"misfit {first:.6e} -> {last:.6e}; {n} evaluations; launches = "
           f"forward {fwd} x (1 + {n}) = {counts['LAUNCHES']} (with "
-          f"strips {counts['LAUNCHES_STRIPS']}, record_points "
+          f"strips {counts['LAUNCHES_STRIPS']}, record-only "
           f"{counts['LAUNCHES_FIBER']}), backward {bwd} x {n} = "
           f"{counts['LAUNCHES_BWD']} (inject_points "
           f"{counts['LAUNCHES_BWD_FIBER']}), as expected; plain calls "
@@ -1492,7 +1565,7 @@ def phase_acoustic_main_paths(dev, streamed):
     # launch a step); then the illumination kernel against its plain
     # version on the card, on the reference survey at the same grid and nt
     cfg, rs, inputs = reference_problem(dev, nt=1001)
-    fwd = cuda_engine.launches_forward(cfg)
+    fwd = forward_launches(cfg)
     r["rtm_elastic"] = _rtm(
         "[19e main path] rtm --physics elastic --nt 1001:",
         ["--physics", "elastic", "--nt", "1001"], {
@@ -1515,7 +1588,8 @@ def phase_acoustic_main_paths(dev, streamed):
 def _profile(label, fn):
     """Device-time breakdown of fn() under torch.profiler: time per kernel,
     the device window from the first device event to the last, and its
-    idle share."""
+    idle share; and the last launch of fwd_step_kernel apart from its
+    others (the elastic forward's record-only launch)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1556,6 +1630,11 @@ def _profile(label, fn):
           f"{100 * rest[2] / busy:.2f}% of busy")
     print(f"[6 profile] {label}: device window {window / 1e3:.3f} ms, busy "
           f"{busy / 1e3:.3f} ms, idle share {1 - busy / window:.4f}")
+    us = [t1 - t0 for t0, t1, name in spans if "::fwd_step_kernel(" in name]
+    if len(us) > 1:
+        print(f"[6 profile] {label}: the last of {len(us)} fwd_step_kernel "
+              f"launches {us[-1]:.3f} us, the others "
+              f"{sum(us[:-1]) / (len(us) - 1):.3f} us each")
 
 
 def _gradient_fn(cfg, rs, inputs, obs=None):
@@ -1578,8 +1657,10 @@ def _gradient_fn(cfg, rs, inputs, obs=None):
 
 def phase_profile(dev):
     """One reference forward_cuda call, one reference gradient evaluation,
-    one reference acoustic gradient evaluation, and one one-shot gradient
-    evaluation on each large grid."""
+    one reference acoustic gradient evaluation, one one-shot gradient
+    evaluation on each large grid, and one gradient evaluation at
+    examples/das_fwi_torch.py's shapes (its point recording and injection
+    apart)."""
     cfg, rs, inputs = reference_problem(dev)
     plan = cuda_engine.plan_for(cfg, rs)
     _profile("one reference forward_cuda_plan",
@@ -1595,6 +1676,9 @@ def phase_profile(dev):
         _profile(f"one gradient evaluation, {name}, nt={nt}, 1 shot",
                  _gradient_fn(cfg, rs, inputs))
         torch.cuda.empty_cache()
+    _profile("one gradient evaluation at das_fwi_torch's shapes (92x132, "
+             "nt=500, 6 shots, 63 weighted points)",
+             _gradient_fn(*das_fwi_problem(dev)))
 
 
 def kernel_record(results):
@@ -1626,17 +1710,20 @@ def kernel_record(results):
                 "library_ms": None}
 
     kernels = [
-        entry("elastic_forward (fused step, record)", fwd_src,
+        entry("elastic_forward (fwd_step_kernel: nt-1 fused steps recording "
+              "inside, then its record-only launch)", fwd_src,
               fused + "875", r[4],
               dict(max_abs_err=abs_err, max_rel_err=rel_err, ms=kernel_ms,
                    plain_ms=plain_ms, bound_ms=k1_bound, bound_by=k1_by)),
-        entry("elastic_forward with boundary strips (fused step, record)",
+        entry("elastic_forward with boundary strips (fwd_step_kernel: nt-1 "
+              "fused steps recording inside, then its record-only launch)",
               fwd_src, fused + "875", r[11]["LAUNCHES_STRIPS"],
               r[7]),
         entry("elastic_backward (fused reverse step, shot sum)", bwd_src,
               fused + "1186", r[11]["LAUNCHES_BWD"], r[8]),
         entry("elastic_forward with point receivers and boundary strips "
-              "(fused step, record_points), the acquisition of "
+              "(fwd_step_kernel: nt-1 fused steps recording the points by "
+              "tile, then its record-only launch), the acquisition of "
               "examples/das_fwi_torch.py", fwd_src, fused + "875",
               r[16]["LAUNCHES_STRIPS"], r[12][0]),
         entry("elastic_backward with point receivers (inject_points, "
@@ -1648,8 +1735,10 @@ def kernel_record(results):
             ("560x720, nt=2001, 1 shot", r[14]),
             ("814x2064, nt=2001, 2 shots", r[15])):
         kernels.append(entry(
-            f"elastic_forward with boundary strips at {shape}, the streamed "
-            "forward's shapes", fwd_src, stream + "1243",
+            f"elastic_forward with boundary strips at {shape} "
+            "(fwd_step_kernel: nt-1 fused steps recording inside, then its "
+            "record-only launch), the streamed forward's shapes", fwd_src,
+            stream + "1243",
             counts["LAUNCHES_STRIPS"], fwd))
         kernels.append(entry(
             f"elastic_backward at {shape}, the streamed backward's shapes",

@@ -24,7 +24,7 @@
 // workload); what a kernel pays instead is its traffic to L2 and device
 // memory.  The design cuts that traffic:
 //
-// One fused launch a step (fwd_step_kernel), then the record launch.  A
+// One fused launch a step (fwd_step_kernel), recording included.  A
 // block owns a kTileZ x kTileX tile of one shot.  At its top it copies
 // every value the step reads into shared memory by cp.async (a cell off the
 // grid, or a memory off its band, is filled with 0, the edge rule): vz and
@@ -72,17 +72,35 @@
 // from the loaded vz/vx and the stresses it reads before updating them; no
 // extra launch.
 //
-// Recording is its own launch: the ett sample vx[r,x] - vx[r,x-1] is taken
-// on the post-update field, a neighbour's value that another block writes.
+// Recording inside the step.  Data index k is the state after step k-1,
+// which is exactly what launch k copies into shared memory (buffer k % 2,
+// which no block writes in that launch).  So launch it records index it
+// (it >= 1; index 0 is the zeroed buffer's 0, left unwritten, since a
+// weighted sample of the zero state could round to -0.0), and after the
+// loop one more launch of the same kernel in record-only mode (load,
+// record, return) records index nt-1: nt launches a forward.
+// The ett sample reads neighbours (x-1, z-1; x+1, z+1 for the weighted
+// strain) that the 4-cell halo of vz and vx holds, and a neighbour off the
+// grid is the copy's zero fill, at()'s rule.  The record pass runs after
+// the first cp.async group has arrived and before the stress loop updates
+// the stresses in place in shared memory, and ends with a __syncthreads()
+// only in a tile that holds receivers, a condition that is uniform over
+// the block, so blocks without receivers pay nothing but the test.  One
+// __device__ function, record_sample, computes every sample, in the
+// rounding order of the plain version.
 //
-// Point recording (K1-fiber).  The TPU kernel records full-width rows by a
-// masked sublane reduction against K per-lane row maps, because Mosaic
-// cannot gather; a CUDA thread can, so record_points_kernel is one thread
-// per (shot, receiver) that reads its own (z, x) from a table, and the K
-// layers, row maps and lane weights are not carried over.  A column of
-// receivers (the TPU package's transposed plan) is just such a table.  The
-// work is R receivers x 4 samples a step, bound by the launch, not by bytes
-// or operations.
+// Which block records which receiver.  A receiver row needs no table: the
+// block whose z-range holds the row records the receivers of its x-range.
+// Points (K1-fiber) come with a per-plan table in compressed-row form by
+// tile (cuda_engine._tile_table): tile_ptr (n_tiles + 1), then receiver
+// indices in receiver order within a tile, so a cell visited twice gives
+// each receiver its own sample.  The table is built for kTileZ x kTileX
+// tiles, and elastic_forward refuses one built for other sizes.  The TPU
+// kernel records full-width rows by a masked sublane reduction against K
+// per-lane row maps, because Mosaic cannot gather; a CUDA thread can read
+// its receiver's (z, x), so the K layers, row maps and lane weights are not
+// carried over, and a column of receivers (the TPU package's transposed
+// plan) is just such a table.  The work is R receivers x 4 samples a step.
 //
 // Illumination (rtm --physics elastic): with an illumination buffer the
 // owner of a cell adds (szz + sxx)^2 of the step's new stresses, source
@@ -101,8 +119,6 @@
 namespace {
 
 using namespace elastic;
-
-constexpr int kRecThreads = 128;
 
 constexpr int TZ = kTileZ, TX = kTileX;
 // vz and vx with a 4-cell halo; the stresses after the stress half-step
@@ -128,6 +144,8 @@ struct Params {
   const int* rec_z;     // (R,) receiver points, or null for a receiver row
   const int* rec_x;     // (R,)
   const float* rec_w;   // (R, 3) weights of (exx, exz, ezz), for ETT_WEIGHTED
+  const int* tile_ptr;  // (n_tiles + 1,) receiver points by tile, or null
+  const int* tile_rec;  // (R,) receiver indices, grouped by tile
   float* fields;        // (2, 5, S, nz, nx)
   float* psi;           // band storage, see PsiZ / PsiX
   float* data;          // (S, 4, R, nt)
@@ -178,17 +196,84 @@ constexpr int S_B = S_PS + 4 * kH2;
 constexpr int S_PV = S_B + 2 * kT;
 static_assert(S_PV + 4 * kT == kFwdShared, "kFwdShared counts this layout");
 
-// One step it for a tile of one shot: the stress half-step
+// The receivers that the tile at (z0, x0) records at data index it: their
+// number (0 when it < 1, where index 0 stays the zeroed buffer's 0), and in
+// *first the first receiver's x (a row) or the first entry of the tile's
+// run in tile_rec (points).  Uniform over the block.
+__device__ __forceinline__ int tile_receivers(const Params& p, int it,
+                                              int z0, int x0, int* first) {
+  if (it < 1 || p.n_rec < 1) return 0;
+  if (p.rec_z == nullptr) {
+    if (p.rec_row < z0 || p.rec_row >= z0 + TZ) return 0;
+    const int lo = max(x0, p.rec_x0), hi = min(x0 + TX, p.rec_x0 + p.n_rec);
+    *first = lo;
+    return max(0, hi - lo);
+  }
+  const int t = blockIdx.y * gridDim.x + blockIdx.x;
+  *first = p.tile_ptr[t];
+  return p.tile_ptr[t + 1] - *first;
+}
+
+// The sample of receiver r of shot s at data index it
+// (propagator._record, exx, ezz or weighted), from the shared copies of the
+// state this launch reads: v is the receiver's cell on the 4-cell halo of
+// vz and vx, t on the 2-cell halo of the stresses.  pr = szz + sxx; ett is
+// vx[c] - vx[c-1] or vz[c] - vz[c-nx], not divided by the spacing
+// (recording_exx / recording_ezz), or the weighted strain rounded step by
+// step in the plain version's order, (w0 exx + w1 exz) + w2 ezz, each
+// strain a difference times the reciprocal spacing.  The x-shifted samples
+// stay on the receiver's own row.
+__device__ __forceinline__ void record_sample(const Params& p,
+                                              const float* s_vz,
+                                              const float* s_vx,
+                                              const float* s_szz,
+                                              const float* s_sxx, int v,
+                                              int t, int s, int r, int it) {
+  const float vz_c = s_vz[v], vx_c = s_vx[v];
+  const float pr = __fadd_rn(s_szz[t], s_sxx[t]);
+  const float d_xx = __fsub_rn(vx_c, s_vx[v - 1]);
+  const float d_zz = __fsub_rn(vz_c, s_vz[v - LX]);
+  float ett;
+  if (p.ett_mode == ETT_EXX) {
+    ett = d_xx;
+  } else if (p.ett_mode == ETT_EZZ) {
+    ett = d_zz;
+  } else {
+    const float* w = p.rec_w + 3 * static_cast<size_t>(r);
+    const float exx = __fmul_rn(d_xx, p.inv_dx);
+    const float ezz = __fmul_rn(d_zz, p.inv_dz);
+    const float exz = __fmul_rn(0.5f, __fadd_rn(
+        __fmul_rn(__fsub_rn(s_vx[v + LX], vx_c), p.inv_dz),
+        __fmul_rn(__fsub_rn(s_vz[v + 1], vz_c), p.inv_dx)));
+    ett = __fadd_rn(__fadd_rn(__fmul_rn(w[0], exx), __fmul_rn(w[1], exz)),
+                    __fmul_rn(w[2], ezz));
+  }
+  const size_t ch = static_cast<size_t>(p.n_rec) * p.nt;
+  float* out = p.data + static_cast<size_t>(s) * 4 * ch +
+               static_cast<size_t>(r) * p.nt + it;
+  out[0] = pr;
+  out[ch] = vx_c;
+  out[2 * ch] = vz_c;
+  out[3 * ch] = ett;
+}
+
+// One step it for a tile of one shot: the recording of data index it
+// from the state the step reads, the stress half-step
 // (propagator._stress_update + _add_source) on the tile and a 2-cell halo,
 // the velocity half-step (propagator._velocity_update) on the tile.  Reads
 // buffer cur, writes buffer cur ^ 1.  Every value it reads comes into
 // shared memory by cp.async at the top, in two groups: the first phase
-// waits for its own inputs, and the second phase's arrive while it runs.
+// (and the recording) waits for its own inputs, and the second phase's
+// arrive while it runs.  With record_only (the launch after the last step)
+// it records and returns; a block with no receivers returns at once.
 __global__ void __launch_bounds__(kTileThreads, 3)
-fwd_step_kernel(Params p, int it, int cur) {
+fwd_step_kernel(Params p, int it, int cur, bool record_only) {
   __shared__ float sm[kFwdShared];
   const int s = blockIdx.z;
   const int z0 = blockIdx.y * TZ, x0 = blockIdx.x * TX;
+  int rec_first = 0;
+  const int n_here = tile_receivers(p, it, z0, x0, &rec_first);
+  if (record_only && n_here == 0) return;
   const int nz = p.nz, nx = p.nx;
   const int nxt = cur ^ 1;
   const size_t plane_n = static_cast<size_t>(nz) * nx;
@@ -251,6 +336,31 @@ fwd_step_kernel(Params p, int it, int cur) {
   float* s_szz = sm + S_S;
   float* s_sxx = sm + S_S + kH2;
   float* s_sxz = sm + S_S + 2 * kH2;
+
+  // recording, before the stress loop updates s_szz and s_sxx in place
+  if (n_here > 0) {
+    for (int j = threadIdx.x; j < n_here; j += kTileThreads) {
+      int r, z, x;
+      if (p.rec_z == nullptr) {
+        x = rec_first + j;
+        z = p.rec_row;
+        r = x - p.rec_x0;
+      } else {
+        r = p.tile_rec[rec_first + j];
+        z = p.rec_z[r];
+        x = p.rec_x[r];
+      }
+      const int lz = z - z0, lx = x - x0;
+      record_sample(p, s_vz, s_vx, s_szz, s_sxx, (lz + 4) * LX + lx + 4,
+                    (lz + 2) * SX + lx + 2, s, r, it);
+    }
+    if (record_only) {
+      cp_async_wait_group<0>();  // no copy in flight when the block exits
+      return;
+    }
+    __syncthreads();
+  }
+
   const int src_z = p.src_z[s], src_x = p.src_x[s];
 #pragma unroll 1
   for (int i = threadIdx.x; i < kH2; i += kTileThreads) {
@@ -390,75 +500,6 @@ fwd_step_kernel(Params p, int it, int cur) {
   }
 }
 
-// Row recording (propagator._record, exx or ezz) of the fields in buffer
-// buf: data[s, :, r, it + 1].
-__global__ void record_kernel(Params p, int it, int buf) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= p.S * p.n_rec) return;
-  const int s = idx / p.n_rec;
-  const int r = idx % p.n_rec;
-  const int nx = p.nx;
-  const size_t c = static_cast<size_t>(p.rec_row) * nx + p.rec_x0 + r;
-  const float* vz = field(p, buf, F_VZ, s);
-  const float* vx = field(p, buf, F_VX, s);
-  const float pr = field(p, buf, F_SZZ, s)[c] + field(p, buf, F_SXX, s)[c];
-  // ett is not divided by the spacing (recording_exx / recording_ezz)
-  const float ett = p.ett_mode == ETT_EZZ ? vz[c] - vz[c - nx]
-                                          : vx[c] - vx[c - 1];
-  const size_t ch = static_cast<size_t>(p.n_rec) * p.nt;
-  float* out = p.data + static_cast<size_t>(s) * 4 * ch +
-               static_cast<size_t>(r) * p.nt + it + 1;
-  out[0] = pr;
-  out[ch] = vx[c];
-  out[2 * ch] = vz[c];
-  out[3 * ch] = ett;
-}
-
-// Point recording (propagator._record at arbitrary receivers, exx, ezz or
-// weighted) of the fields in buffer buf: data[s, :, r, it + 1], one thread
-// per (shot, receiver).  The x-shifted sample stays on the receiver's own
-// row.  A neighbour outside the grid reads as 0; the wrapper keeps every
-// receiver inside 1 <= z <= nz-2, 0 <= x < nx.  The weighted sample is
-// rounded step by step in the plain version's order: (w0 exx + w1 exz) +
-// w2 ezz, each strain a difference times the reciprocal spacing.
-__global__ void record_points_kernel(Params p, int it, int buf) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= p.S * p.n_rec) return;
-  const int s = idx / p.n_rec;
-  const int r = idx % p.n_rec;
-  const int nz = p.nz, nx = p.nx;
-  const int z = p.rec_z[r], x = p.rec_x[r];
-  const size_t c = static_cast<size_t>(z) * nx + x;
-  const float* vz = field(p, buf, F_VZ, s);
-  const float* vx = field(p, buf, F_VX, s);
-  const float vz_c = vz[c], vx_c = vx[c];
-  const float pr = field(p, buf, F_SZZ, s)[c] + field(p, buf, F_SXX, s)[c];
-  const float d_xx = __fsub_rn(vx_c, at(vx, z, x - 1, nz, nx));
-  const float d_zz = __fsub_rn(vz_c, at(vz, z - 1, x, nz, nx));
-  float ett;
-  if (p.ett_mode == ETT_EXX) {
-    ett = d_xx;  // not divided by the spacing (recording_exx)
-  } else if (p.ett_mode == ETT_EZZ) {
-    ett = d_zz;
-  } else {
-    const float* w = p.rec_w + 3 * static_cast<size_t>(r);
-    const float exx = __fmul_rn(d_xx, p.inv_dx);
-    const float ezz = __fmul_rn(d_zz, p.inv_dz);
-    const float exz = __fmul_rn(0.5f, __fadd_rn(
-        __fmul_rn(__fsub_rn(at(vx, z + 1, x, nz, nx), vx_c), p.inv_dz),
-        __fmul_rn(__fsub_rn(at(vz, z, x + 1, nz, nx), vz_c), p.inv_dx)));
-    ett = __fadd_rn(__fadd_rn(__fmul_rn(w[0], exx), __fmul_rn(w[1], exz)),
-                    __fmul_rn(w[2], ezz));
-  }
-  const size_t ch = static_cast<size_t>(p.n_rec) * p.nt;
-  float* out = p.data + static_cast<size_t>(s) * 4 * ch +
-               static_cast<size_t>(r) * p.nt + it + 1;
-  out[0] = pr;
-  out[ch] = vx_c;
-  out[2 * ch] = vz_c;
-  out[3 * ch] = ett;
-}
-
 }  // namespace
 
 // The tile plan, as chip_smoke.py reports it: kTileZ, kTileX, kTileThreads,
@@ -472,49 +513,60 @@ extern "C" void elastic_tile_plan(int* out) {
   out[4] = static_cast<int>(kBwdShared * sizeof(float));
 }
 
-// Runs all nt-1 steps for all shots on `stream`; returns the first CUDA
-// error (0 on success).  Does not synchronise and allocates nothing: the
-// caller passes zeroed fields (2, 5, S, nz, nx), the final fields come back
-// in buffer (nt-1) % 2; zeroed CPML memories in band storage, 6 z-memory
-// planes (S, nbz, nx) then 6 x-memory planes (S, nz, nbx) with nbz and nbx
-// the band sizes of [band_z_lo, band_z_hi) and [band_x_lo, band_x_hi); a
-// zeroed data buffer; and either a strip buffer of (S, nt-1, 5,
-// 2 n_bnd (nz + nx)) floats, which every step fills, or null.  Receivers:
-// either a row (rec_z null; rec_row, rec_x0) or n_rec points (rec_z, rec_x
-// and, for ETT_WEIGHTED, rec_w), validated by the caller.  Two launches a
-// step either way: the fused step and the record.
+// The blocks of fwd_step_kernel that one SM of this device holds at once,
+// into out[0]; returns the CUDA error (0 on success).
+extern "C" int elastic_forward_plan(int* out) {
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], fwd_step_kernel, kTileThreads, 0));
+}
+
+// elastic_forward's error for a point table built for other tiles than
+// kTileZ x kTileX (elastic_error_string names it).
+constexpr int kErrTileMismatch = -1;
+
+// Runs all nt-1 steps for all shots on `stream`, and records at every
+// index; returns the first CUDA error (0 on success).  Does not synchronise
+// and allocates nothing: the caller passes zeroed fields (2, 5, S, nz, nx),
+// the final fields come back in buffer (nt-1) % 2; zeroed CPML memories in
+// band storage, 6 z-memory planes (S, nbz, nx) then 6 x-memory planes
+// (S, nz, nbx) with nbz and nbx the band sizes of [band_z_lo, band_z_hi)
+// and [band_x_lo, band_x_hi); a zeroed data buffer; and either a strip
+// buffer of (S, nt-1, 5, 2 n_bnd (nz + nx)) floats, which every step
+// fills, or null.  Receivers: either a row (rec_z null; rec_row, rec_x0) or
+// n_rec points (rec_z, rec_x and, for ETT_WEIGHTED, rec_w) with their
+// table by tile (tile_ptr, tile_rec), built for tile_z x tile_x tiles,
+// validated by the caller; tiles other than the kernel's return
+// kErrTileMismatch before any launch.  nt launches for nt >= 2 (none
+// below): nt-1 fused steps, each recording the state it reads, and the
+// record-only launch of index nt-1.
 extern "C" int elastic_forward(const float* mats, const float* prof_z,
                                const float* prof_x, const float* stf,
                                const int* src_z, const int* src_x,
                                const float* rxz, const int* rec_z,
                                const int* rec_x, const float* rec_w,
+                               const int* tile_ptr, const int* tile_rec,
                                float* fields, float* psi, float* data,
                                float* strips, int S, int nz, int nx, int nt,
                                int rec_row, int rec_x0, int n_rec,
-                               int ett_mode, int npml, int n_bnd,
-                               int band_z_lo, int band_z_hi, int band_x_lo,
-                               int band_x_hi, float dt, float src_amp,
-                               float inv_dz, float inv_dx, void* stream) {
+                               int ett_mode, int tile_z, int tile_x,
+                               int npml, int n_bnd, int band_z_lo,
+                               int band_z_hi, int band_x_lo, int band_x_hi,
+                               float dt, float src_amp, float inv_dz,
+                               float inv_dx, void* stream) {
+  if (tile_z != kTileZ || tile_x != kTileX) return kErrTileMismatch;
+  if (nt < 2) return 0;  // the zeroed data: nothing to step or record
   Params p{mats, prof_z, prof_x, stf, src_z, src_x, rxz, rec_z, rec_x, rec_w,
-           fields, psi, data, strips, nullptr, S, nz, nx, nt, rec_row,
-           rec_x0, n_rec, ett_mode, dt, src_amp, inv_dz, inv_dx,
-           strip_geom(nz, nx, npml, n_bnd), Band{band_z_lo, band_z_hi},
-           Band{band_x_lo, band_x_hi}};
+           tile_ptr, tile_rec, fields, psi, data, strips, nullptr, S, nz,
+           nx, nt, rec_row, rec_x0, n_rec, ett_mode, dt, src_amp, inv_dz,
+           inv_dx, strip_geom(nz, nx, npml, n_bnd),
+           Band{band_z_lo, band_z_hi}, Band{band_x_lo, band_x_hi}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((nx + TX - 1) / TX, (nz + TZ - 1) / TZ, S);
-  const int rec_blocks = (S * n_rec + kRecThreads - 1) / kRecThreads;
-  for (int it = 0; it < nt - 1; ++it) {
-    const int cur = it & 1;
-    fwd_step_kernel<<<grid, kTileThreads, 0, st>>>(p, it, cur);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (rec_z == nullptr) {
-      record_kernel<<<rec_blocks, kRecThreads, 0, st>>>(p, it, cur ^ 1);
-    } else {
-      record_points_kernel<<<rec_blocks, kRecThreads, 0, st>>>(p, it,
-                                                               cur ^ 1);
-    }
-    err = cudaGetLastError();
+  for (int it = 0; it < nt; ++it) {
+    // launch nt-1 records index nt-1 and steps no further
+    fwd_step_kernel<<<grid, kTileThreads, 0, st>>>(p, it, it & 1,
+                                                   it == nt - 1);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
@@ -536,13 +588,14 @@ extern "C" int elastic_illumination(const float* mats, const float* prof_z,
                                     int band_x_hi, float dt, float src_amp,
                                     void* stream) {
   Params p{mats, prof_z, prof_x, stf, src_z, src_x, rxz, nullptr, nullptr,
-           nullptr, fields, psi, nullptr, nullptr, ill, S, nz, nx, nt, 0, 0,
-           0, ETT_EXX, dt, src_amp, 0.0f, 0.0f, StripGeom{},
-           Band{band_z_lo, band_z_hi}, Band{band_x_lo, band_x_hi}};
+           nullptr, nullptr, nullptr, fields, psi, nullptr, nullptr, ill, S,
+           nz, nx, nt, 0, 0, 0, ETT_EXX, dt, src_amp, 0.0f, 0.0f,
+           StripGeom{}, Band{band_z_lo, band_z_hi},
+           Band{band_x_lo, band_x_hi}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((nx + TX - 1) / TX, (nz + TZ - 1) / TZ, S);
   for (int it = 0; it < nt - 1; ++it) {
-    fwd_step_kernel<<<grid, kTileThreads, 0, st>>>(p, it, it & 1);
+    fwd_step_kernel<<<grid, kTileThreads, 0, st>>>(p, it, it & 1, false);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -552,5 +605,9 @@ extern "C" int elastic_illumination(const float* mats, const float* prof_z,
 // Message for an error code returned by elastic_forward or
 // elastic_backward.
 extern "C" const char* elastic_error_string(int err) {
+  if (err == kErrTileMismatch) {
+    return "the receiver table was built for other tiles than the kernel's "
+           "kTileZ x kTileX";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -102,7 +102,7 @@ def load() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.elastic_forward.argtypes = [P] * 14 + [I] * 14 + [F] * 4 + [P]
+        lib.elastic_forward.argtypes = [P] * 16 + [I] * 16 + [F] * 4 + [P]
         lib.elastic_forward.restype = I
         lib.elastic_backward.argtypes = [P] * 21 + [I] * 15 + [F, F, P]
         lib.elastic_backward.restype = I
@@ -114,7 +114,8 @@ def load() -> ctypes.CDLL:
         lib.acoustic_forward.restype = I
         lib.acoustic_backward.argtypes = [P] * 21 + [I] * 14 + [F, F, P]
         lib.acoustic_backward.restype = I
-        for name in ("acoustic_forward_plan", "acoustic_backward_plan"):
+        for name in ("elastic_forward_plan", "acoustic_forward_plan",
+                     "acoustic_backward_plan"):
             getattr(lib, name).argtypes = [P]
             getattr(lib, name).restype = I
         lib.elastic_error_string.argtypes = [I]

@@ -27,15 +27,22 @@ order; kernels and plain versions share both.
 The kernels run one fused launch a step over tiles in shared memory
 (elastic_common.cuh), with the fields and what a step reads at neighbours
 held twice, and the CPML memories only in their bands (`cpml_bands`);
-`state_floats_per_shot` counts what a gradient holds a shot.
+`state_floats_per_shot` counts what a gradient holds a shot.  The forward
+records inside its fused step, from the state the step reads, and one
+record-only launch of the same kernel after the last step records the last
+sample: nt launches a forward, for a receiver row and for points alike.
+Points are recorded by the tile that owns their cell, from a per-plan table
+by tile (`_tile_table`, built for `TILE`; the kernel refuses a table of
+other tiles).
 
 The wrappers take their plain versions only for tensors that lie on the
 CPU.  On CUDA tensors they launch the kernels or raise: they never drop to
 the plain versions or to the CPU.  `LAUNCHES` and `LAUNCHES_BWD` count the
 kernel launches (`LAUNCHES_STRIPS` the forward's with strip saving,
-`LAUNCHES_FIBER` and `LAUNCHES_BWD_FIBER` the point-recording and
-point-injection launches among them) and `PLAIN_CALLS` the calls of each
-plain version, so a run can show which path it went through.
+`LAUNCHES_FIBER` the record-only launches of point-receiver forwards and
+`LAUNCHES_BWD_FIBER` the backward's point-injection launches among them)
+and `PLAIN_CALLS` the calls of each plain version, so a run can show which
+path it went through.
 """
 from __future__ import annotations
 
@@ -53,14 +60,16 @@ from sep2023_tpu_torch.medium import material_fields
 from sep2023_tpu_torch.ops import _build
 from sep2023_tpu_torch.propagator import Fields, ShotGeom
 
-# Kernel launches made by forward_cuda_plan: 2 per time step (the fused
-# step, record), with or without strip saving, row or point receivers.
-# Read and reset by callers that check the path they ran.
+# Kernel launches made by forward_cuda_plan: nt a forward (nt-1 fused
+# steps, each recording the state it reads, and one record-only launch of
+# the same kernel for the last sample), with or without strip saving, row
+# or point receivers.  Read and reset by callers that check the path they
+# ran.
 LAUNCHES = 0
 # The part of LAUNCHES made with strip saving (the gradient's forward).
 LAUNCHES_STRIPS = 0
-# The part of LAUNCHES that recorded at points (record_points_kernel): 1 per
-# time step of a FiberSurvey forward.
+# The part of LAUNCHES that only recorded at points: the record-only launch,
+# 1 a FiberSurvey forward (its steps record inside the fused step).
 LAUNCHES_FIBER = 0
 # Kernel launches made by backward_cuda_plan and reconstruct_cuda_plan: 1 a
 # step (the fused reverse step) and 1 shot sum; with a FiberSurvey 2 per
@@ -97,6 +106,9 @@ N_GRAD_PLANES = 5
 N_BAND_PLANES = 6
 
 ETT_MODES = {"exx": 0, "ezz": 1, "weighted": 2}  # EttMode, elastic_common.cuh
+# (kTileZ, kTileX) of csrc/elastic_common.cuh: the tiles the point table is
+# built for; elastic_forward refuses a table built for others.
+TILE = (16, 32)
 # Adjoint planes of the work buffer that take receiver cotangents (InjPlane,
 # elastic_bwd.cu).
 _A_VZ, _A_VX, _A_SZZ, _A_SXX = 0, 1, 2, 3
@@ -104,8 +116,9 @@ _A_VZ, _A_VX, _A_SZZ, _A_SXX = 0, 1, 2, 3
 _AC_A_P, _AC_A_VZ, _AC_A_VX = 0, 1, 2
 
 def launches_forward(cfg: SimConfig) -> int:
-    """Launches of one forward_cuda_plan call on the card: 2 a step."""
-    return 2 * (cfg.nt - 1)
+    """Launches of one forward_cuda_plan call on the card: nt (nt-1 fused
+    steps and the record-only launch), none for nt < 2."""
+    return cfg.nt if cfg.nt > 1 else 0
 
 
 def launches_backward(cfg: SimConfig, rs) -> int:
@@ -326,6 +339,27 @@ def _injection_table(cfg: SimConfig, fs: FiberSurvey, acoustic=False):
             i32(rec), i32(ch), np.ascontiguousarray(coef, np.float32))
 
 
+def _tile_table(cfg: SimConfig, fs: FiberSurvey, tile):
+    """The point receivers by the tile that owns their cell, in
+    compressed-row form for tiles of tile = (z, x) cells: int32 tile_ptr
+    (n_tiles + 1) and the receiver indices (R,), in receiver order within a
+    tile, tiles numbered row-major over the (ceil(nz / tile z),
+    ceil(nx / tile x)) grid of tiles, as the forward kernel's blocks are.
+    Receiver r lies in tile_rec[tile_ptr[t]:tile_ptr[t + 1]] of its tile t,
+    once."""
+    tz, tx = tile
+    n_tx = -(-cfg.nx // tx)
+    n_tiles = -(-cfg.nz // tz) * n_tx
+    z = np.asarray(fs.rec_z, np.int64)
+    x = np.asarray(fs.rec_x, np.int64)
+    tile_of = (z // tz) * n_tx + x // tx
+    rec = np.argsort(tile_of, kind="stable")
+    ptr = np.concatenate(
+        [[0], np.cumsum(np.bincount(tile_of, minlength=n_tiles))])
+    i32 = lambda a: np.ascontiguousarray(a, np.int32)
+    return i32(ptr), i32(rec)
+
+
 def _as_numpy(a, dtype):
     if isinstance(a, torch.Tensor):
         a = a.detach().cpu().numpy()
@@ -352,9 +386,10 @@ class FastPlan:
 
     def receivers(self, device: torch.device, acoustic: bool = False):
         """Point receivers' device tables: (rec_z, rec_x int32 (R,), rec_w
-        float32 (R, 3) or None, the injection table of 6 tensors); None for
-        a RowSurvey.  acoustic: the tables of the acoustic kernels (no
-        weights, the acoustic injection table)."""
+        float32 (R, 3) or None, the injection table of 6 tensors, the
+        recording table by tile (tile_ptr, tile_rec, the `TILE` it was
+        built for)); None for a RowSurvey.  acoustic: the tables of the
+        acoustic kernels (no weights, the acoustic injection table)."""
         if not isinstance(self.rs, FiberSurvey):
             return None
         hit = self._receivers.get((device, acoustic))
@@ -364,10 +399,12 @@ class FastPlan:
             rec_w = None
             if self.cfg.das_channel == "weighted" and not acoustic:
                 rec_w = up(np.ascontiguousarray(rs.weights, np.float32))
+            tile_ptr, tile_rec = _tile_table(self.cfg, rs, TILE)
             hit = (up(np.ascontiguousarray(rs.rec_z, np.int32)),
                    up(np.ascontiguousarray(rs.rec_x, np.int32)), rec_w,
                    tuple(up(a) for a in _injection_table(self.cfg, rs,
-                                                         acoustic)))
+                                                         acoustic)),
+                   (up(tile_ptr), up(tile_rec), TILE))
             self._receivers[(device, acoustic)] = hit
         return hit
 
@@ -590,7 +627,8 @@ def forward_cuda_plan(plan: FastPlan, lam, mu, rho, stf, src_z, src_x, rxz,
     (data, strips (S, nt-1, 5, strip_len), final fields (5, S, nz, nx)).
 
     CPU tensors run the plain versions; CUDA tensors run the kernel, at any
-    grid size."""
+    grid size: nt launches (`launches_forward`), the last one recording
+    only."""
     global LAUNCHES, LAUNCHES_STRIPS, LAUNCHES_FIBER
     cfg, rs = plan.cfg, plan.rs
     src = _check_inputs(plan, lam, mu, rho, stf, src_z, src_x, rxz)
@@ -607,6 +645,8 @@ def forward_cuda_plan(plan: FastPlan, lam, mu, rho, stf, src_z, src_x, rxz,
         prof_z, prof_x = _profiles(cfg, device)
         rec = plan.receivers(device)
         rec_z, rec_x, rec_w = (None,) * 3 if rec is None else rec[:3]
+        tile_ptr, tile_rec, tile = (None, None, TILE) if rec is None \
+            else rec[4]
         zeros = lambda *shape: torch.zeros(shape, device=device,
                                            dtype=torch.float32)
         fields = zeros(2, 5, S, cfg.nz, cfg.nx)
@@ -620,18 +660,19 @@ def forward_cuda_plan(plan: FastPlan, lam, mu, rho, stf, src_z, src_x, rxz,
         err = lib.elastic_forward(
             mats.data_ptr(), prof_z.data_ptr(), prof_x.data_ptr(),
             stf.data_ptr(), *(t.data_ptr() for t in src),
-            _ptr(rec_z), _ptr(rec_x), _ptr(rec_w),
-            fields.data_ptr(), psi.data_ptr(), data.data_ptr(),
-            _ptr(strips), S, cfg.nz, cfg.nx, cfg.nt, *_row_args(rs),
-            ETT_MODES[cfg.das_channel], cfg.npml, cfg.n_bnd_layers,
+            _ptr(rec_z), _ptr(rec_x), _ptr(rec_w), _ptr(tile_ptr),
+            _ptr(tile_rec), fields.data_ptr(), psi.data_ptr(),
+            data.data_ptr(), _ptr(strips), S, cfg.nz, cfg.nx, cfg.nt,
+            *_row_args(rs), ETT_MODES[cfg.das_channel], *tile, cfg.npml,
+            cfg.n_bnd_layers,
             *cpml_bands(cfg), ctypes.c_float(cfg.dt),
             ctypes.c_float(cfg.src_scale * cfg.dt),
             ctypes.c_float(one / np.float32(cfg.dz)),
             ctypes.c_float(one / np.float32(cfg.dx)), stream)
     _raise_on(lib, err, "elastic_forward")
     LAUNCHES += launches_forward(cfg)
-    if rec is not None:
-        LAUNCHES_FIBER += cfg.nt - 1
+    if rec is not None and cfg.nt > 1:
+        LAUNCHES_FIBER += 1
     if save_strips:
         LAUNCHES_STRIPS += launches_forward(cfg)
         # the final fields alone, so the double buffer is freed here

@@ -48,17 +48,26 @@ AC_INTERIOR = 2
 # Cases that put the edges of the fused kernels' tiles (kTileZ x kTileX =
 # 16 x 32 cells, csrc/elastic_common.cuh) where a race or a halo fault
 # would show: grid sides that are not multiples of the tile, a grid smaller
-# than one tile, a CPML band wider than a tile, and sources, a receiver row's first and last
-# receiver and fiber points on the cells either side of a tile edge.  Each:
-# (physical nz, nx, npml, nt, das_channel, padded (src_z, src_x) of each
-# shot, receivers): receivers ("row", rec_row, rec_x0, n_rec) or ("points",
-# rec_z, rec_x) with the weighted channel's weights (1, 0.5, 0.25), all
-# padded-grid indices.  20 m, 2 ms, 10 Hz.  Their adjoint test draws from
+# than one tile, a CPML band wider than a tile, and sources, a receiver
+# row's first and last receiver and fiber points on the cells either side
+# of a tile edge, the last case with some cells visited two to four times
+# (each receiver records its own sample in the tile that owns its cell).
+# Each: (physical nz, nx, npml, nt, das_channel, padded (src_z, src_x) of
+# each shot, receivers): receivers ("row", rec_row, rec_x0, n_rec) or
+# ("points", rec_z, rec_x) with the weighted channel's weights (1, 0.5,
+# 0.25), or ("points", rec_z, rec_x, weights) with weights of their own,
+# all padded-grid indices.  20 m, 2 ms, 10 Hz.  Their adjoint test draws from
 # TILE_EDGE_SEED: seed 7's random pair nearly cancels on the sources-on-edges
 # case (<d, J s> = 15.9 where its terms are about 6e4), so that even the
 # plain versions' relative gap there is 1.6e-3.
 _EDGES_Z, _EDGES_X = (15, 16, 31, 32, 47, 48), (31, 32, 63, 64)
 TILE_EDGE_SEED = 8
+# every edge cell once, then (15, 31), (15, 32) and (16, 31) again and
+# (48, 64) three times more
+_DUP_Z = np.concatenate([np.repeat(_EDGES_Z, len(_EDGES_X)),
+                         [15, 15, 16, 48, 48, 48]])
+_DUP_X = np.concatenate([np.tile(_EDGES_X, len(_EDGES_Z)),
+                         [31, 32, 31, 64, 64, 64]])
 TILE_EDGE_CASES = {
     "ragged tiles": (45, 61, 10, 260, "exx", ((11, 20), (11, 60)),
                      ("row", 48, 20, 41)),
@@ -73,6 +82,13 @@ TILE_EDGE_CASES = {
         44, 76, 10, 260, "weighted", ((11, 40), (11, 70)),
         ("points", np.repeat(_EDGES_Z, len(_EDGES_X)),
          np.tile(_EDGES_X, len(_EDGES_Z)))),
+    # weights of each receiver's own, so that two receivers of one cell
+    # record different samples
+    "duplicate points on tile edges": (
+        44, 76, 10, 260, "weighted", ((11, 40), (11, 70)),
+        ("points", _DUP_Z, _DUP_X,
+         np.random.default_rng(TILE_EDGE_SEED).uniform(
+             0.25, 1.0, (len(_DUP_Z), 3)))),
 }
 
 
@@ -99,11 +115,7 @@ AC_TILE_EDGE_CASES = {
         ("row", 48, 32, 32)),
     "duplicate points on tile edges": (
         44, 76, 10, 260, ((11, 40), (11, 70)),
-        ("points",
-         np.concatenate([np.repeat(_EDGES_Z, len(_EDGES_X)),
-                         [15, 15, 16, 48, 48, 48]]),
-         np.concatenate([np.tile(_EDGES_X, len(_EDGES_Z)),
-                         [31, 32, 31, 64, 64, 64]]))),
+        ("points", _DUP_Z, _DUP_X)),
 }
 
 
@@ -129,8 +141,9 @@ def tile_edge_problem(name, *, device):
     args = (*args[:4], src_z, src_x, np.ones(len(src_z)))
     if rec[0] == "row":
         return cfg, cuda_engine.RowSurvey(*rec[1:]), args
-    rec_z, rec_x = rec[1:]
-    das_w = np.tile([1.0, 0.5, 0.25], (len(rec_z), 1))
+    rec_z, rec_x = rec[1:3]
+    das_w = rec[3] if len(rec) > 3 else np.tile([1.0, 0.5, 0.25],
+                                                (len(rec_z), 1))
     return cfg, cuda_engine.make_fiber_survey(rec_z, rec_x, das_w), args
 
 

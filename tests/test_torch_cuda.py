@@ -12,7 +12,8 @@ kernels on AC_TILE_EDGE_CASES, where the edges of their tiles can bite:
 data, strips and final fields bitwise equal to plain, gradients, a second
 backward bitwise, the reconstruction residual equal to plain's, the image
 and illumination.  The elastic illumination kernel (the fused step with its
-accumulator) bitwise equal to imaging.source_illumination.  These mirror
+accumulator) bitwise equal to imaging.source_illumination.  A point table
+built for other tiles than the kernel's raises.  These mirror
 phases 3, 7-10, 12, 17, 19e, 20 and 21 of chip_smoke.py; they need a CUDA
 device and nvcc, and skip without a card:
 
@@ -132,16 +133,16 @@ def test_reconstruction_residual(cuda):
 
 @pytest.mark.parametrize("case", list(FIBER_CASES))
 def test_fiber_forward_matches_plain(cuda, case):
-    """record_points_kernel: data, strips and final fields, and one point
-    launch a step."""
+    """Point recording inside the fused step: data, strips and final
+    fields, nt launches, one of them the record-only launch."""
     cfg, rs, args = fiber_problem(case, device=cuda)
     before = (cuda_engine.LAUNCHES, cuda_engine.LAUNCHES_FIBER)
     out = cuda_engine.forward_cuda_plan(cuda_engine.plan_for(cfg, rs), *args,
                                         save_strips=True)
     torch.cuda.synchronize()
-    steps = cfg.nt - 1
+    assert cuda_engine.launches_forward(cfg) == cfg.nt
     assert (cuda_engine.LAUNCHES, cuda_engine.LAUNCHES_FIBER) == \
-        (before[0] + cuda_engine.launches_forward(cfg), before[1] + steps)
+        (before[0] + cfg.nt, before[1] + 1)
     ref = cuda_engine.forward_plain_strips(cfg, rs, *args)
     assert float(ref[0][:, 3].abs().max()) > 1e-3
     d, s, f = strip_errors(out, ref)
@@ -274,6 +275,21 @@ def test_tile_edges_forward_bitwise(cuda, case):
     plain = reconstruction_residual(cfg, cuda_engine.reconstruct_plain(
         cfg, rs, *args, final, strips), data)
     assert kern == plain, (kern, plain)
+
+
+@pytest.mark.parametrize("case", ["fiber points on tile edges",
+                                  "ragged tiles"])
+def test_forward_refuses_a_table_of_other_tiles(cuda, case, monkeypatch):
+    """A plan whose tables were built for tiles other than the kernel's
+    (cuda_engine.TILE mistaken for 8 x 32) makes elastic_forward raise
+    before any launch, for points and for a row."""
+    cfg, rs, args = tile_edge_problem(case, device=cuda)
+    monkeypatch.setattr(cuda_engine, "TILE", (8, 32))
+    plan = cuda_engine.FastPlan(cfg, rs)   # not the cached plan
+    before = cuda_engine.LAUNCHES
+    with pytest.raises(RuntimeError, match="other tiles"):
+        cuda_engine.forward_cuda_plan(plan, *args)
+    assert cuda_engine.LAUNCHES == before
 
 
 @pytest.mark.parametrize("case", list(TILE_EDGE_CASES))

@@ -101,14 +101,15 @@ def test_plain_forward_memories_vanish_outside_the_bands():
 @pytest.mark.parametrize("grid", ["reference 165x265", "814x2064",
                                   "under one tile 14x26"])
 def test_launch_and_plane_counts(grid):
-    """2 launches a forward step (fused step, record); 1 a reverse step for
-    a receiver row and 2 for point receivers, and the shot sum; 35 planes
+    """nt launches a forward (nt-1 fused steps, each recording the state it
+    reads, and the record-only launch of the last sample); 1 a reverse step
+    for a receiver row and 2 for point receivers, and the shot sum; 35 planes
     of nz x nx a shot (final fields, the double-buffered fields, 15 work
     planes, 5 gradients) and 6 band planes of CPML memory of each axis."""
     cfg = _cfg(*GRIDS[grid], nt=1501)
     row = ce.RowSurvey(cfg.npml + 2, 3, 5)
     fiber = ce.make_fiber_survey([5, 6], [7, 8])
-    assert ce.launches_forward(cfg) == 2 * 1500
+    assert ce.launches_forward(cfg) == 1500 + 1
     assert ce.launches_backward(cfg, row) == 1500 + 1
     assert ce.launches_backward(cfg, fiber) == 2 * 1500 + 1
     assert (ce.N_STATE_PLANES, ce.N_WORK_PLANES, ce.N_GRAD_PLANES,
