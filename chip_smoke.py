@@ -10,10 +10,13 @@ gradient at 814x2064, the curved-fiber inversion of
 examples/das_fwi_torch.py), checks the ElasticPropagator API, and prints
 the device-time breakdown of a reference forward, a reference gradient, a
 reference acoustic gradient, two large-grid gradients and a fiber gradient
-at examples/das_fwi_torch.py's shapes (torch.profiler).  The elastic
-forward is nt launches of one kernel, recording inside its fused step and
-in a record-only launch after the last step; every phase that runs it
-checks that count.
+at examples/das_fwi_torch.py's shapes (torch.profiler).  The elastic and
+the acoustic forward are nt launches of one kernel each, recording inside
+the fused step and in a record-only launch after the last step; the
+elastic backward is nt launches, nt-1 fused reverse steps (which add point
+receivers' cotangents themselves) and the shot sum; every phase that runs
+them checks those counts.  Phase 22 times the two shot sums alone against
+their byte bound and one PyTorch call.
 The two large main paths are also held against the plain versions at their
 own shapes (nt=2001, the main path's survey), and the 54-shot chunk of the
 560x720 one, whose strip offsets pass 2^32, against the same shots run
@@ -37,6 +40,7 @@ bit against imaging.source_illumination on the card).
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 3,7,8,9,10,20   # those phases only
     python3 chip_smoke.py --phases 17,21           # the acoustic pair
+    python3 chip_smoke.py --phases 22              # the shot sums
 
 Needs one CUDA device and nvcc; exits nonzero, printing no result, without
 them.  Imports neither jax nor sep2023_tpu.  The last line of standard
@@ -158,7 +162,7 @@ def cuda_ms(fn, reps, warm=True):
 # Every launch counter, by the module that holds it.
 COUNTERS = {"LAUNCHES": cuda_engine, "LAUNCHES_STRIPS": cuda_engine,
             "LAUNCHES_FIBER": cuda_engine, "LAUNCHES_BWD": cuda_engine,
-            "LAUNCHES_BWD_FIBER": cuda_engine, "LAUNCHES_ILL": cuda_engine,
+            "LAUNCHES_ILL": cuda_engine,
             "LAUNCHES_AC": cuda_acoustic,
             "LAUNCHES_AC_STRIPS": cuda_acoustic,
             "LAUNCHES_AC_BWD": cuda_acoustic,
@@ -184,11 +188,21 @@ def counts_are(got, want):
     return got == {k: want.get(k, 0) for k in COUNTERS}
 
 
-def forward_launches(cfg):
-    """Launches of one elastic forward: nt, the nt-1 fused steps, each
-    recording the state it reads, and the record-only launch."""
-    n = cuda_engine.launches_forward(cfg)
-    check(n == cfg.nt, f"launches_forward gives {n} for nt={cfg.nt}")
+def forward_launches(cfg, acoustic=False):
+    """Launches of one elastic (or acoustic) forward: nt, the nt-1 fused
+    steps, each recording the state it reads, and the record-only
+    launch."""
+    n = (cuda_acoustic.launches_forward_acoustic(cfg) if acoustic
+         else cuda_engine.launches_forward(cfg))
+    check(n == cfg.nt, f"launches a forward: {n} for nt={cfg.nt}")
+    return n
+
+
+def backward_launches(cfg, rs):
+    """Launches of one elastic backward: nt, the nt-1 fused reverse steps
+    (a point receiver's cotangent added inside them) and the shot sum."""
+    n = cuda_engine.launches_backward(cfg, rs)
+    check(n == cfg.nt, f"launches_backward gives {n} for nt={cfg.nt}")
     return n
 
 
@@ -196,7 +210,7 @@ def forward_backward_counts(cfg, rs, eng):
     """The launch counters of one forward with strips and one backward of
     engine `eng` (ELASTIC or ACOUSTIC) on survey rs."""
     if eng.acoustic:
-        fwd = cuda_acoustic.launches_forward_acoustic(cfg)
+        fwd = forward_launches(cfg, acoustic=True)
         return {"LAUNCHES_AC": fwd, "LAUNCHES_AC_STRIPS": fwd,
                 "LAUNCHES_AC_BWD":
                     cuda_acoustic.launches_backward_acoustic(cfg, rs)}
@@ -204,8 +218,7 @@ def forward_backward_counts(cfg, rs, eng):
     fwd = forward_launches(cfg)
     return {"LAUNCHES": fwd, "LAUNCHES_STRIPS": fwd,
             "LAUNCHES_FIBER": 1 if fiber else 0,
-            "LAUNCHES_BWD": cuda_engine.launches_backward(cfg, rs),
-            "LAUNCHES_BWD_FIBER": cfg.nt - 1 if fiber else 0}
+            "LAUNCHES_BWD": backward_launches(cfg, rs)}
 
 
 def check_counts(label, got, want, plain_calls):
@@ -284,6 +297,15 @@ def elastic_forward_blocks():
     return out[0]
 
 
+def elastic_backward_blocks():
+    """Blocks of bwd_step_kernel, with its dynamic shared memory, an SM of
+    this device holds, as the library has it."""
+    out = (ctypes.c_int * 1)()
+    err = _build.load().elastic_backward_plan(out)
+    check(err == 0, f"elastic_backward_plan: CUDA error {err}")
+    return out[0]
+
+
 def acoustic_plan(kind):
     """(static shared memory a block in bytes, blocks an SM of this device)
     of the fused acoustic `kind` kernel ('forward' or 'backward'), as the
@@ -303,21 +325,24 @@ def phase_build():
     print(f"[2 build] fused elastic kernels: {tz}x{tx} tiles, {threads} "
           f"threads a block, shared memory a block {fwd_smem} B (forward, "
           f"static) and {bwd_smem} B (backward, dynamic)")
-    fwd_blocks = elastic_forward_blocks()
+    blocks = {"fwd_step_kernel": elastic_forward_blocks(),
+              "bwd_step_kernel": elastic_backward_blocks()}
     print(f"[2 build] fused elastic forward (fwd_step_kernel, recording "
-          f"inside): {fwd_blocks} blocks an SM on "
+          f"inside): {blocks['fwd_step_kernel']} blocks an SM; fused "
+          f"elastic backward (bwd_step_kernel, point cotangents inside): "
+          f"{blocks['bwd_step_kernel']} blocks an SM on "
           f"{torch.cuda.get_device_name(0)}")
     for kind, kernel in (("forward", "ac_fwd_step_kernel"),
                          ("backward", "ac_bwd_step_kernel")):
-        smem, blocks = acoustic_plan(kind)
+        smem, blocks[kernel] = acoustic_plan(kind)
         print(f"[2 build] fused acoustic {kind} ({kernel}): "
               f"{tz}x{tx} tiles, {threads} threads a block, {smem} B of "
-              f"static shared memory a block, {blocks} blocks an SM on "
-              f"{torch.cuda.get_device_name(0)}")
+              f"static shared memory a block, {blocks[kernel]} blocks an SM "
+              f"on {torch.cuda.get_device_name(0)}")
     # ptxas -v: "Function properties for <mangled name>", then "N bytes
     # stack frame, N bytes spill stores, N bytes spill loads" and "Used N
     # registers, ..." for that kernel
-    name, spills, fwd_spills = None, "", None
+    name, spills, all_spills = None, "", {}
     for line in _build.build_log(path).read_text().splitlines():
         m = re.search(r"Function properties for .*?(?<=\d)([a-z_]+_kernel)E",
                       line)
@@ -328,13 +353,19 @@ def phase_build():
         elif "Used" in line and name:
             print(f"[2 build] {name}: {line.split(':', 1)[1].strip()}; "
                   f"{spills}")
-            if name == "fwd_step_kernel":
-                fwd_spills = spills
+            all_spills[name] = spills
             name = None
-    # __launch_bounds__(256, 3): at least 3 blocks an SM, and no spills
-    check(fwd_blocks >= 3, f"fwd_step_kernel at {fwd_blocks} blocks an SM")
-    check(fwd_spills is not None and "0 bytes spill stores, 0 bytes spill "
-          "loads" in fwd_spills, f"fwd_step_kernel spills: {fwd_spills}")
+    # the blocks an SM that each fused kernel's __launch_bounds__ asks for,
+    # and no spills: the recording and the point cotangents inside the
+    # fused steps may cost neither
+    for kernel, least in (("fwd_step_kernel", 3), ("bwd_step_kernel", 2),
+                          ("ac_fwd_step_kernel", 4),
+                          ("ac_bwd_step_kernel", 4)):
+        check(blocks[kernel] >= least,
+              f"{kernel} at {blocks[kernel]} blocks an SM, not {least}")
+        check("0 bytes spill stores, 0 bytes spill loads"
+              in all_spills.get(kernel, ""),
+              f"{kernel} spills: {all_spills.get(kernel)}")
 
 
 def phase_kernel_vs_plain(dev):
@@ -586,7 +617,7 @@ def _invert(label, argv, cfg, rs, S, niter):
     n = out["n_evals"]
     chunks = len(parallel._chunks(S, out["shot_chunk"]))
     fwd = forward_launches(cfg)
-    bwd = cuda_engine.launches_backward(cfg, rs)
+    bwd = backward_launches(cfg, rs)
     # the twin data: one forward a chunk; an evaluation: a forward with
     # strips and a backward a chunk
     want = {"LAUNCHES": fwd * chunks * (1 + n),
@@ -625,10 +656,9 @@ def _kernel_case(label, cfg, rs, inputs, seed=7):
     reconstruction residual equal to the plain f32 one, the adjoint dot
     product (its random pair drawn from `seed`), and the launch counters of
     each call.  Returns its printed summary."""
-    steps = cfg.nt - 1
     fiber = isinstance(rs, cuda_engine.FiberSurvey)
     fwd = forward_launches(cfg)
-    bwd = cuda_engine.launches_backward(cfg, rs)
+    bwd = backward_launches(cfg, rs)
     plan = cuda_engine.plan_for(cfg, rs)
     reset_counts()
     out = cuda_engine.forward_cuda_plan(plan, *inputs, save_strips=True)
@@ -658,8 +688,7 @@ def _kernel_case(label, cfg, rs, inputs, seed=7):
     reset_counts()
     again = cuda_engine.backward_cuda_plan(plan, *res)
     counts, _ = read_counts()
-    check(counts_are(counts, {"LAUNCHES_BWD": bwd,
-                              "LAUNCHES_BWD_FIBER": steps if fiber else 0}),
+    check(counts_are(counts, {"LAUNCHES_BWD": bwd}),
           f"{label}: backward launch counters {counts}")
     check(all(torch.equal(a, b) for a, b in zip(g, again)),
           f"{label}: a second backward run gave other bits")
@@ -673,9 +702,9 @@ def _kernel_case(label, cfg, rs, inputs, seed=7):
             f"backward bitwise equal; reconstruction residual / peak |pr| "
             f"{kern:.6e}, equal to plain f32; adjoint gap {gap:.3e} <= "
             f"{DOT_TOL}; launches a forward {fwd} (the last recording "
-            f"only), a backward "
-            f"{bwd}{f' (inject_points {steps})' if fiber else ''}; max |ett| "
-            f"{ett:.6e}")
+            f"only), a backward {bwd} (the last the shot sum"
+            f"{'; point cotangents inside the fused steps' if fiber else ''}"
+            f"); max |ett| {ett:.6e}")
 
 
 def _fiber_case(label, cfg, rs, inputs):
@@ -713,8 +742,9 @@ def das_fwi_problem(dev):
 
 
 def phase_fiber_vs_plain(dev):
-    """K1-fiber: the point recording of the fused forward and
-    inject_points_kernel against the plain versions on every FIBER_CASES
+    """K1-fiber: the point recording of the fused forward and the point
+    cotangents of the fused reverse step against the plain versions on
+    every FIBER_CASES
     problem and at the shapes of the fiber main path
     (examples/das_fwi_torch.py), where they are also timed: returns that
     case's (forward, backward) numbers."""
@@ -1071,7 +1101,7 @@ def phase_marmousi_chunked(dev, nz=750, nx=2000, nt=2001, S=8, chunk=2):
     peak = torch.cuda.max_memory_allocated()
     rs = parallel._cuda_plan(cfg, survey)[0].rs
     fwd_n = forward_launches(cfg)
-    bwd_n = cuda_engine.launches_backward(cfg, rs)
+    bwd_n = backward_launches(cfg, rs)
     want = {"LAUNCHES": fwd_n * n_chunks * 2,
             "LAUNCHES_STRIPS": fwd_n * n_chunks,
             "LAUNCHES_BWD": bwd_n * n_chunks}
@@ -1111,9 +1141,8 @@ def phase_marmousi_chunked(dev, nz=750, nx=2000, nt=2001, S=8, chunk=2):
 def phase_fiber_main_path(dev):
     """examples/das_fwi_torch.py's main with maxiter=3 on the card."""
     cfg, rs, _ = das_fwi_problem(dev)
-    steps = cfg.nt - 1
     fwd = forward_launches(cfg)
-    bwd = cuda_engine.launches_backward(cfg, rs)
+    bwd = backward_launches(cfg, rs)
     with tempfile.TemporaryDirectory() as d:
         reset_counts()
         t0 = time.perf_counter()
@@ -1123,11 +1152,10 @@ def phase_fiber_main_path(dev):
         counts, plain_calls = read_counts()
     # the twin data: one forward; an evaluation: a forward with strips and
     # a backward; a forward records its points inside its fused steps and
-    # in one record-only launch, a backward injects them in a launch a step
+    # in one record-only launch, a backward adds their cotangents inside
+    # its fused steps
     want = {"LAUNCHES": fwd * (1 + n), "LAUNCHES_STRIPS": fwd * n,
-            "LAUNCHES_FIBER": 1 + n,
-            "LAUNCHES_BWD": bwd * n,
-            "LAUNCHES_BWD_FIBER": steps * n}
+            "LAUNCHES_FIBER": 1 + n, "LAUNCHES_BWD": bwd * n}
     check_counts("[16 main path, fiber]", counts, want, plain_calls)
     check(np.isfinite(last) and last < first,
           f"the gauge misfit did not decrease: {first} -> {last}")
@@ -1136,8 +1164,7 @@ def phase_fiber_main_path(dev):
           f"forward {fwd} x (1 + {n}) = {counts['LAUNCHES']} (with "
           f"strips {counts['LAUNCHES_STRIPS']}, record-only "
           f"{counts['LAUNCHES_FIBER']}), backward {bwd} x {n} = "
-          f"{counts['LAUNCHES_BWD']} (inject_points "
-          f"{counts['LAUNCHES_BWD_FIBER']}), as expected; plain calls "
+          f"{counts['LAUNCHES_BWD']}, as expected; plain calls "
           f"{plain_calls}; {seconds:.3f} s in all")
     return counts
 
@@ -1147,8 +1174,7 @@ def _acoustic_forward_pair(label, cfg, rs, args):
     the same data either way, and both bitwise equal to the plain version
     with strips.  Returns (the kernel's (data, strips, final), the
     errors)."""
-    steps = cfg.nt - 1
-    fwd = cuda_acoustic.launches_forward_acoustic(cfg)
+    fwd = forward_launches(cfg, acoustic=True)
     plan = cuda_engine.plan_for(cfg, rs)
     reset_counts()
     out = cuda_acoustic.forward_cuda_acoustic_plan(plan, *args,
@@ -1156,7 +1182,7 @@ def _acoustic_forward_pair(label, cfg, rs, args):
     data = cuda_acoustic.forward_cuda_acoustic_plan(plan, *args)
     counts, _ = read_counts()
     check(counts_are(counts, {"LAUNCHES_AC": 2 * fwd,
-                              "LAUNCHES_AC_STRIPS": fwd}) and fwd == 2 * steps,
+                              "LAUNCHES_AC_STRIPS": fwd}),
           f"{label}: forward launch counters {counts}")
     check(torch.equal(data, out[0]), f"{label}: strip saving changed the data")
     ref = cuda_acoustic.forward_plain_acoustic_strips(cfg, rs, *args)
@@ -1224,7 +1250,7 @@ def _acoustic_case(tag, label, cfg, rs, args, seed=7):
     pair drawn from `seed`), the reconstruction residual equal to the plain
     f32 one, the image.  `tag` heads the printed lines."""
     plan = cuda_engine.plan_for(cfg, rs)
-    fwd = cuda_acoustic.launches_forward_acoustic(cfg)
+    fwd = forward_launches(cfg, acoustic=True)
     (syn, strips, final), (d, s, f) = _acoustic_forward_pair(label, cfg, rs,
                                                              args)
     cot = ac_perturbed_cotangent(cfg, rs, args, syn)
@@ -1262,7 +1288,8 @@ def _acoustic_case(tag, label, cfg, rs, args, seed=7):
           f"{GRAD_TOL} on the tight interior less {AC_INTERIOR}; adjoint gap "
           f"{gap:.3e} <= {DOT_TOL}; a second backward bitwise equal; "
           f"reconstruction residual / peak |pr| {kern:.6e}, equal to plain "
-          f"f32; launches a forward {fwd}, a backward {n}")
+          f"f32; launches a forward {fwd} (the last recording only), a "
+          f"backward {n}")
     _acoustic_image_pair(f"{tag} {label}", cfg, rs, args, final, strips,
                          -cot)
 
@@ -1389,10 +1416,9 @@ def _counted_gradient(label, cfg, rs, args, reps):
     then its CUDA-event time.  Returns (counts, ms)."""
     gradient = _acoustic_gradient_fn(cfg, rs, args)
     steps = cfg.nt - 1
-    fwd = cuda_acoustic.launches_forward_acoustic(cfg)
+    fwd = forward_launches(cfg, acoustic=True)
     bwd = cuda_acoustic.launches_backward_acoustic(cfg, rs)
-    check(fwd == 2 * steps and bwd == steps + 1,
-          f"{label}: launches a forward {fwd}, a backward {bwd}")
+    check(bwd == steps + 1, f"{label}: launches a backward {bwd}")
     reset_counts()
     g = gradient()
     torch.cuda.synchronize()
@@ -1408,8 +1434,8 @@ def _counted_gradient(label, cfg, rs, args, reps):
     S = args[2].shape[0]
     cells = cfg.nz * cfg.nx * steps * S
     print(f"{label} ({cfg.nz}x{cfg.nx}, nt={cfg.nt}, {S} shot(s)): max "
-          f"|gradient| (lam, rho) {gmax}; launches forward with strips 2 x "
-          f"{steps} = {counts['LAUNCHES_AC']}, backward {steps} + 1 = "
+          f"|gradient| (lam, rho) {gmax}; launches forward with strips "
+          f"{steps} + 1 = {counts['LAUNCHES_AC']}, backward {steps} + 1 = "
           f"{counts['LAUNCHES_AC_BWD']}, as expected; plain calls 0; "
           f"{ms:.3f} ms a gradient (CUDA events, mean of {reps}), "
           f"{cells / ms / 1e6:.2f} GCell/s")
@@ -1495,7 +1521,7 @@ def phase_acoustic_main_paths(dev, streamed):
         data = cli.main(["forward", "--physics", "acoustic", "--data-dir", d])
         counts, plain_calls = read_counts()
         check_counts("[19a main path] forward --physics acoustic", counts,
-                     {"LAUNCHES_AC": 2 * 1500}, plain_calls)
+                     {"LAUNCHES_AC": 1501}, plain_calls)
         out = data.cpu().numpy()
         check(data.device.type == "cuda" and out.shape == (19, 3, 181, 1501)
               and np.isfinite(out).all(), f"acoustic data {out.shape}")
@@ -1520,7 +1546,7 @@ def phase_acoustic_main_paths(dev, streamed):
     torch.cuda.synchronize()
     counts, plain_calls = read_counts()
     check_counts("[19b main path] forward --physics acoustic at 560x720",
-                 counts, {"LAUNCHES_AC": 2 * 2000}, plain_calls)
+                 counts, {"LAUNCHES_AC": 2001}, plain_calls)
     check(tuple(data.shape) == (64, 3, 636, 2001)
           and bool(torch.isfinite(data).all()), f"data {tuple(data.shape)}")
     cfg, rs, args = acoustic_reference_problem(dev, **grid)
@@ -1551,7 +1577,7 @@ def phase_acoustic_main_paths(dev, streamed):
 
     # (c) rtm at its defaults: acoustic, 19 shots in one chunk
     r["rtm"] = _rtm("[19c main path] rtm (acoustic):", [], {
-        "LAUNCHES_AC": 3 * 2 * 1500, "LAUNCHES_AC_STRIPS": 2 * 1500,
+        "LAUNCHES_AC": 3 * 1501, "LAUNCHES_AC_STRIPS": 1501,
         "LAUNCHES_AC_BWD": 1500 + 1, "LAUNCHES_AC_IMG": 1500 + 1}, 67)
 
     # (d) the bench's acoustic gradient at the reference workload
@@ -1570,7 +1596,7 @@ def phase_acoustic_main_paths(dev, streamed):
         "[19e main path] rtm --physics elastic --nt 1001:",
         ["--physics", "elastic", "--nt", "1001"], {
             "LAUNCHES": 2 * fwd, "LAUNCHES_STRIPS": fwd,
-            "LAUNCHES_BWD": cuda_engine.launches_backward(cfg, rs),
+            "LAUNCHES_BWD": backward_launches(cfg, rs),
             "LAUNCHES_ILL": cfg.nt - 1}, 67)
     r["illumination"] = _illumination_vs_plain(cfg, rs, inputs)
 
@@ -1588,8 +1614,9 @@ def phase_acoustic_main_paths(dev, streamed):
 def _profile(label, fn):
     """Device-time breakdown of fn() under torch.profiler: time per kernel,
     the device window from the first device event to the last, and its
-    idle share; and the last launch of fwd_step_kernel apart from its
-    others (the elastic forward's record-only launch)."""
+    idle share; and the last launch of fwd_step_kernel and of
+    ac_fwd_step_kernel apart from their others (a forward's record-only
+    launch)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1630,11 +1657,12 @@ def _profile(label, fn):
           f"{100 * rest[2] / busy:.2f}% of busy")
     print(f"[6 profile] {label}: device window {window / 1e3:.3f} ms, busy "
           f"{busy / 1e3:.3f} ms, idle share {1 - busy / window:.4f}")
-    us = [t1 - t0 for t0, t1, name in spans if "::fwd_step_kernel(" in name]
-    if len(us) > 1:
-        print(f"[6 profile] {label}: the last of {len(us)} fwd_step_kernel "
-              f"launches {us[-1]:.3f} us, the others "
-              f"{sum(us[:-1]) / (len(us) - 1):.3f} us each")
+    for kernel in ("fwd_step_kernel", "ac_fwd_step_kernel"):
+        us = [t1 - t0 for t0, t1, name in spans if f"::{kernel}(" in name]
+        if len(us) > 1:
+            print(f"[6 profile] {label}: the last of {len(us)} {kernel} "
+                  f"launches {us[-1]:.3f} us, the others "
+                  f"{sum(us[:-1]) / (len(us) - 1):.3f} us each")
 
 
 def _gradient_fn(cfg, rs, inputs, obs=None):
@@ -1659,8 +1687,7 @@ def phase_profile(dev):
     """One reference forward_cuda call, one reference gradient evaluation,
     one reference acoustic gradient evaluation, one one-shot gradient
     evaluation on each large grid, and one gradient evaluation at
-    examples/das_fwi_torch.py's shapes (its point recording and injection
-    apart)."""
+    examples/das_fwi_torch.py's shapes (point receivers)."""
     cfg, rs, inputs = reference_problem(dev)
     plan = cuda_engine.plan_for(cfg, rs)
     _profile("one reference forward_cuda_plan",
@@ -1681,6 +1708,88 @@ def phase_profile(dev):
              _gradient_fn(*das_fwi_problem(dev)))
 
 
+# The shot sums timed alone (phase 22): (kernel, per-shot planes, shots,
+# grid) at the reference workload and at 814x2064 with the shots a main
+# path has in flight there (the Marmousi-scale chunk of 2; the acoustic
+# gradient of phase 19f, 1 shot).
+SHOT_SUM_CASES = {
+    "sum_shots_kernel, reference workload": ("elastic", 5, 19, (165, 265)),
+    "sum_shots_kernel, 814x2064": ("elastic", 5, 2, (814, 2064)),
+    "ac_sum_shots_kernel, reference workload": ("acoustic", 3, 19,
+                                                (165, 265)),
+    "ac_sum_shots_kernel, 814x2064": ("acoustic", 3, 1, (814, 2064)),
+}
+
+
+def phase_shot_sums(dev, reps=100):
+    """Each backward's last launch, the sum of its per-shot gradient planes
+    over shots (sum_shots_kernel, ac_sum_shots_kernel), alone on seeded
+    random planes of each SHOT_SUM_CASES shape: bitwise against a plain
+    loop over shots in the kernel's order, then timed by CUDA events with
+    L2 (50 MB) flushed before each call, as (flush + call) - flush over
+    `reps` calls, beside its byte bound (the per-shot planes read once, the
+    sum written once) and one PyTorch call, per_shot.sum(0) (time only: it
+    sums in another order); and without the flush (L2-warm).  Returns the
+    numbers of the kernels line by case."""
+    lib = _build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(22)
+    flush = torch.empty(2 ** 25, device=dev)    # 128 MB, past L2
+
+    def cold_ms(fn):
+        both = cuda_ms(lambda: (flush.zero_(), fn()), reps)
+        return both - cuda_ms(flush.zero_, reps)
+
+    numbers = {}
+    for name, (kind, planes, S, (nz, nx)) in SHOT_SUM_CASES.items():
+        per_shot = torch.randn((S, planes, nz, nx), generator=gen, device=dev)
+        out = torch.empty((planes, nz, nx), device=dev)
+        if kind == "elastic":
+            launch = lambda: lib.elastic_sum_shots(
+                per_shot.data_ptr(), out.data_ptr(), S, nz, nx, stream)
+        else:
+            launch = lambda: lib.acoustic_sum_shots(
+                per_shot.data_ptr(), out.data_ptr(), S, planes, nz, nx,
+                stream)
+
+        def plain():
+            acc = torch.zeros_like(out)
+            for k in range(S):
+                acc += per_shot[k]
+            return acc
+
+        check(launch() == 0, f"{name}: launch failed")
+        ref = plain()
+        check(torch.equal(out, ref), f"{name}: kernel vs plain loop not "
+              f"bitwise: {rel_err(out, ref)}")
+        lib_err = rel_err(out, per_shot.sum(0))
+        ms, plain_ms, library_ms = (cold_ms(f) for f in
+                                    (launch, plain, lambda: per_shot.sum(0)))
+        warm_ms = cuda_ms(launch, reps)
+        warm_library_ms = cuda_ms(lambda: per_shot.sum(0), reps)
+        n_bytes = nbytes(per_shot, out)
+        ops = S * planes * nz * nx
+        b_ms, b_by = max((ops / PEAK_FP32 * 1e3, "operations"),
+                         (n_bytes / PEAK_BYTES * 1e3, "bytes"))
+        print(f"[22 shot sums] {name} ({S} shots x {planes} planes of "
+              f"{nz}x{nx}): bitwise equal to the plain loop over shots, max "
+              f"rel err against per_shot.sum(0) {lib_err:.3e}; CUDA events, "
+              f"L2 flushed: kernel {ms:.4f} ms, plain loop {plain_ms:.4f} ms,"
+              f" per_shot.sum(0) {library_ms:.4f} ms (means of {reps}); "
+              f"L2-warm: kernel {warm_ms:.4f} ms, per_shot.sum(0) "
+              f"{warm_library_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, "
+              f"{n_bytes / 1e6:.3f} MB): the kernel at "
+              f"{100 * b_ms / ms:.1f}% of it")
+        numbers[name] = dict(max_abs_err=float((out - ref).abs().max()),
+                             max_rel_err=0.0, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by,
+                             library_ms=library_ms)
+        del per_shot, out, ref
+    del flush
+    torch.cuda.empty_cache()
+    return numbers
+
+
 def kernel_record(results):
     """The JSON record of every kernel.  `launches` are the counts of the
     kernel's main path, read just after it ran from counts set to 0 just
@@ -1690,7 +1799,10 @@ def kernel_record(results):
     (K1-fiber), one shot of `invert` at 560x720, nt=2001 and one chunk of 2
     shots at 814x2064, nt=2001 (K3, K4), `forward --physics acoustic` at
     560x720, nt=2001, 64 shots and the one-shot acoustic gradients at
-    560x720, nt=1001 and 814x2064, nt=601 (K7, K8).
+    560x720, nt=1001 and 814x2064, nt=601 (K7, K8); the shot sums alone at
+    phase 22's shapes, each launched once by every backward of its main
+    path (its launches: that path's backward launches over nt, the
+    launches of one backward).
     max_abs_err is in the outputs' own units, over outputs of very
     different magnitudes (the four gradients of a backward); max_rel_err is
     relative to each output's max and is what the phases check."""
@@ -1706,8 +1818,8 @@ def kernel_record(results):
 
     def entry(name, source, replaces, launches, numbers):
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches, **numbers,
-                "library_ms": None}
+                "replaces": replaces, "launches": launches,
+                "library_ms": None, **numbers}
 
     kernels = [
         entry("elastic_forward (fwd_step_kernel: nt-1 fused steps recording "
@@ -1726,8 +1838,8 @@ def kernel_record(results):
               "tile, then its record-only launch), the acquisition of "
               "examples/das_fwi_torch.py", fwd_src, fused + "875",
               r[16]["LAUNCHES_STRIPS"], r[12][0]),
-        entry("elastic_backward with point receivers (inject_points, "
-              "fused reverse step, shot sum), the acquisition of "
+        entry("elastic_backward with point receivers (fused reverse step "
+              "adding the points' cotangents, shot sum), the acquisition of "
               "examples/das_fwi_torch.py", bwd_src, fused + "1186",
               r[16]["LAUNCHES_BWD"], r[12][1]),
     ]
@@ -1754,10 +1866,12 @@ def kernel_record(results):
               "on the card, rtm --physics elastic --nt 1001", fwd_src,
               "sep2023_tpu/imaging.py:57", ac["rtm_elastic"]["LAUNCHES_ILL"],
               ac["illumination"]),
-        entry("acoustic_forward (fused step, record)", ac_fwd_src,
+        entry("acoustic_forward (ac_fwd_step_kernel: nt-1 fused steps "
+              "recording inside, then its record-only launch)", ac_fwd_src,
               fused + "1512", ac["forward"]["LAUNCHES_AC"], k5),
-        entry("acoustic_forward with boundary strips (fused step, record)",
-              ac_fwd_src, fused + "1512",
+        entry("acoustic_forward with boundary strips (ac_fwd_step_kernel: "
+              "nt-1 fused steps recording inside, then its record-only "
+              "launch)", ac_fwd_src, fused + "1512",
               ac["gradient"][0]["LAUNCHES_AC_STRIPS"], k5_strips),
         entry("acoustic_backward (fused reverse step, shot sum)", ac_bwd_src,
               fused + "1746", ac["gradient"][0]["LAUNCHES_AC_BWD"], k6),
@@ -1781,6 +1895,21 @@ def kernel_record(results):
             f"acoustic_backward at {shape}, the streamed acoustic "
             "backward's shapes", ac_bwd_src, stream + "2493",
             counts["LAUNCHES_AC_BWD"], bwd))
+
+    sums = r[22]
+    for name, source, replaces, bwd_launches, nt in (
+            ("sum_shots_kernel, reference workload", bwd_src,
+             fused + "1186", r[11]["LAUNCHES_BWD"], 1501),
+            ("sum_shots_kernel, 814x2064", bwd_src, stream + "1794",
+             r[15][0]["LAUNCHES_BWD"], 2001),
+            ("ac_sum_shots_kernel, reference workload", ac_bwd_src,
+             fused + "1746", ac["gradient"][0]["LAUNCHES_AC_BWD"], 1501),
+            ("ac_sum_shots_kernel, 814x2064", ac_bwd_src, stream + "2493",
+             ac["814x2064 row"][0]["LAUNCHES_AC_BWD"], 601)):
+        kind, planes, S, _ = SHOT_SUM_CASES[name]
+        kernels.append(entry(
+            f"{name}, {S} shot(s) x {planes} planes: the backward's shot "
+            "sum alone", source, replaces, bwd_launches // nt, sums[name]))
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: no launch on its main path")
     return {"kernels": kernels}
@@ -1823,6 +1952,7 @@ def main(argv=None):
         (21, lambda: phase_acoustic_tile_edges(dev)),
         (18, lambda: phase_acoustic_large(dev)),
         (19, lambda: phase_acoustic_main_paths(dev, results[18])),
+        (22, lambda: phase_shot_sums(dev)),
         (6, lambda: phase_profile(dev)),
     ]
     only = {int(k) for k in args.phases.split(",") if k.strip()}

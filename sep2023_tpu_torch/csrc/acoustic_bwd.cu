@@ -526,7 +526,30 @@ __global__ void ac_sum_shots_kernel(Params p) {
   p.acc_sum[idx] = sum;
 }
 
+int launch_sum_shots(const Params& p, cudaStream_t st) {
+  const size_t n = p.n_acc * static_cast<size_t>(p.nz) * p.nx;
+  const int blocks = static_cast<int>((n + kSumThreads - 1) / kSumThreads);
+  ac_sum_shots_kernel<<<blocks, kSumThreads, 0, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// The shot sum alone, as acoustic_backward launches it after its reverse
+// steps: acc_sum (n_acc, nz, nx) = the sum over s = 0 .. S-1, in that
+// order, of acc (S, n_acc, nz, nx).  For timing it against its bound and
+// against one PyTorch call; returns the CUDA error (0 on success).
+extern "C" int acoustic_sum_shots(float* acc, float* acc_sum, int S,
+                                  int n_acc, int nz, int nx, void* stream) {
+  Params p{};
+  p.acc = acc;
+  p.acc_sum = acc_sum;
+  p.S = S;
+  p.n_acc = n_acc;
+  p.nz = nz;
+  p.nx = nx;
+  return launch_sum_shots(p, static_cast<cudaStream_t>(stream));
+}
 
 // The fused backward's plan, as chip_smoke.py reports it: its static shared
 // memory a block in bytes, and the blocks of it an SM of the current device
@@ -591,8 +614,5 @@ extern "C" int acoustic_backward(const float* mats, const float* prof_z,
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const size_t n = n_acc * static_cast<size_t>(nz) * nx;
-  const int blocks = static_cast<int>((n + kSumThreads - 1) / kSumThreads);
-  ac_sum_shots_kernel<<<blocks, kSumThreads, 0, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return launch_sum_shots(p, st);
 }

@@ -25,7 +25,7 @@
 // traffic to L2 and device memory and the latency of each step's chain of
 // loads.  The design is elastic_fwd.cu's, on half the planes:
 //
-// One fused launch a step (ac_fwd_step_kernel), then the record launch.
+// One fused launch a step (ac_fwd_step_kernel), recording included.
 // Pressure first: a block owns a kTileZ x kTileX tile of one shot.  At its
 // top it copies every value the step reads into shared memory by cp.async
 // (a cell off the grid, or a memory off its band, is filled with 0, the
@@ -64,10 +64,25 @@
 // fields' values before the step (acoustic._save_bnd) from what it loaded;
 // no extra launch.
 //
-// Recording is its own launch: a sample reads the fields the step wrote,
-// and a cell's owner is one block of many; points (which may visit a cell
-// twice) and a row run the same launch.  TMA and tensor cores are not used,
-// for the reasons given in elastic_fwd.cu.
+// Recording inside the step, as in elastic_fwd.cu.  Data index k is the
+// state after step k-1, which is what launch k copies into shared memory
+// (buffer k % 2, which no block writes in that launch): p on the tile and
+// its 2-cell halo, vz and vx on the tile and its 4-cell halo.  So launch it
+// records index it (it >= 1; index 0 stays the zeroed buffer's 0), and after
+// the loop one more launch of the same kernel in record-only mode (load,
+// record, return) records index nt-1: nt launches a forward.  The record
+// pass runs after the first cp.async group has arrived and before the
+// pressure loop updates p in place in shared memory, and ends with a
+// __syncthreads() only in a tile that holds receivers, a condition that is
+// uniform over the block.  A receiver row needs no table (the tile whose
+// z-range holds the row records the receivers of its x-range); points come
+// with the per-plan table by tile of the elastic forward
+// (cuda_engine._tile_table), in receiver order within a tile, so a cell
+// visited twice gives each receiver its own sample; acoustic_forward refuses
+// a table built for other tiles than kTileZ x kTileX.  A sample is a copy
+// of three values (ac_record_sample), so the data are the plain version's
+// bits.  TMA and tensor cores are not used, for the reasons given in
+// elastic_fwd.cu.
 //
 // Rounding: the stencils, the interior increments and the source use the
 // shared code of elastic_common.cuh and acoustic_common.cuh, with explicit
@@ -79,8 +94,6 @@
 namespace {
 
 using namespace acoustic;
-
-constexpr int kRecThreads = 128;
 
 constexpr int TZ = kTileZ, TX = kTileX;
 // vz and vx with a 4-cell halo; p after the pressure half-step on the tile
@@ -104,6 +117,8 @@ struct Params {
   const int* src_x;     // (S,)
   const int* rec_z;     // (R,) receiver points, or null for a receiver row
   const int* rec_x;     // (R,)
+  const int* tile_ptr;  // (n_tiles + 1,) receiver points by tile, or null
+  const int* tile_rec;  // (R,) receiver indices, grouped by tile
   float* fields;        // (2, 3, S, nz, nx)
   float* psi;           // band storage, see PsiZ / PsiX
   float* data;          // (S, 3, R, nt)
@@ -153,17 +168,59 @@ constexpr int S_PV = S_B + 2 * kT;
 static_assert(S_PV + 2 * kT == kAcFwdShared,
               "kAcFwdShared counts this layout");
 
-// One step it for a tile of one shot: the pressure half-step and the source
+// The receivers that the tile at (z0, x0) records at data index it: their
+// number (0 when it < 1, where index 0 stays the zeroed buffer's 0), and in
+// *first the first receiver's x (a row) or the first entry of the tile's
+// run in tile_rec (points).  Uniform over the block.
+__device__ __forceinline__ int tile_receivers(const Params& p, int it,
+                                              int z0, int x0, int* first) {
+  if (it < 1 || p.n_rec < 1) return 0;
+  if (p.rec_z == nullptr) {
+    if (p.rec_row < z0 || p.rec_row >= z0 + TZ) return 0;
+    const int lo = max(x0, p.rec_x0), hi = min(x0 + TX, p.rec_x0 + p.n_rec);
+    *first = lo;
+    return max(0, hi - lo);
+  }
+  const int t = blockIdx.y * gridDim.x + blockIdx.x;
+  *first = p.tile_ptr[t];
+  return p.tile_ptr[t + 1] - *first;
+}
+
+// The sample of receiver r of shot s at data index it (acoustic.ac_step's
+// rec): (pr = p, vx, vz) at its cell, from the shared copies of the state
+// this launch reads: t is the cell on the 2-cell halo of p, v on the 4-cell
+// halo of vz and vx.
+__device__ __forceinline__ void ac_record_sample(const Params& p,
+                                                 const float* s_p,
+                                                 const float* s_vz,
+                                                 const float* s_vx, int t,
+                                                 int v, int s, int r,
+                                                 int it) {
+  const size_t ch = static_cast<size_t>(p.n_rec) * p.nt;
+  float* out = p.data + static_cast<size_t>(s) * kAcFields * ch +
+               static_cast<size_t>(r) * p.nt + it;
+  out[0] = s_p[t];
+  out[ch] = s_vx[v];
+  out[2 * ch] = s_vz[v];
+}
+
+// One step it for a tile of one shot: the recording of data index it from
+// the state the step reads, the pressure half-step and the source
 // (acoustic.ac_step, first half) on the tile and a 2-cell halo, the velocity
 // half-step on the tile.  Reads buffer cur, writes buffer cur ^ 1.  Every
 // value it reads comes into shared memory by cp.async at the top, in two
-// groups: the first phase waits for its own inputs, and the second phase's
-// arrive while it runs.
+// groups: the first phase (and the recording) waits for its own inputs, and
+// the second phase's arrive while it runs.  With record_only (the launch
+// after the last step) it records and returns; a block with no receivers
+// returns at once.
 __global__ void __launch_bounds__(kTileThreads, 4)
-ac_fwd_step_kernel(Params p, int it, int cur) {
+ac_fwd_step_kernel(Params p, int it, int cur, bool record_only) {
   __shared__ float sm[kAcFwdShared];
   const int s = blockIdx.z;
   const int z0 = blockIdx.y * TZ, x0 = blockIdx.x * TX;
+  int rec_first = 0;
+  const int n_here = tile_receivers(p, it, z0, x0, &rec_first);
+  if (record_only && n_here == 0) return;
   const int nz = p.nz, nx = p.nx;
   const int nxt = cur ^ 1;
   const size_t plane_n = static_cast<size_t>(nz) * nx;
@@ -211,6 +268,31 @@ ac_fwd_step_kernel(Params p, int it, int cur) {
   const float* s_vz = sm + S_V;
   const float* s_vx = sm + S_V + kH4;
   float* s_p = sm + S_P;
+
+  // recording, before the pressure loop updates s_p in place
+  if (n_here > 0) {
+    for (int j = threadIdx.x; j < n_here; j += kTileThreads) {
+      int r, z, x;
+      if (p.rec_z == nullptr) {
+        x = rec_first + j;
+        z = p.rec_row;
+        r = x - p.rec_x0;
+      } else {
+        r = p.tile_rec[rec_first + j];
+        z = p.rec_z[r];
+        x = p.rec_x[r];
+      }
+      const int lz = z - z0, lx = x - x0;
+      ac_record_sample(p, s_p, s_vz, s_vx, (lz + 2) * SX + lx + 2,
+                       (lz + 4) * LX + lx + 4, s, r, it);
+    }
+    if (record_only) {
+      cp_async_wait_group<0>();  // no copy in flight when the block exits
+      return;
+    }
+    __syncthreads();
+  }
+
   const int src_z = p.src_z[s], src_x = p.src_x[s];
 #pragma unroll 1
   for (int i = threadIdx.x; i < kH2; i += kTileThreads) {
@@ -308,26 +390,6 @@ ac_fwd_step_kernel(Params p, int it, int cur) {
   }
 }
 
-// Recording (acoustic.ac_step's rec) of the fields in buffer buf:
-// data[s, :, r, it + 1] = (p, vx, vz) at receiver r, on the row or at its
-// point.
-__global__ void ac_record_kernel(Params p, int it, int buf) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= p.S * p.n_rec) return;
-  const int s = idx / p.n_rec;
-  const int r = idx % p.n_rec;
-  const size_t c =
-      p.rec_z == nullptr
-          ? static_cast<size_t>(p.rec_row) * p.nx + p.rec_x0 + r
-          : static_cast<size_t>(p.rec_z[r]) * p.nx + p.rec_x[r];
-  const size_t ch = static_cast<size_t>(p.n_rec) * p.nt;
-  float* out = p.data + static_cast<size_t>(s) * kAcFields * ch +
-               static_cast<size_t>(r) * p.nt + it + 1;
-  out[0] = field(p, buf, F_P, s)[c];
-  out[ch] = field(p, buf, F_VX_AC, s)[c];
-  out[2 * ch] = field(p, buf, F_VZ_AC, s)[c];
-}
-
 }  // namespace
 
 // The fused forward's plan, as chip_smoke.py reports it: its static shared
@@ -348,33 +410,37 @@ extern "C" int acoustic_forward_plan(int* out) {
 // the band sizes of [band_z_lo, band_z_hi) and [band_x_lo, band_x_hi); a
 // zeroed data buffer; and either a strip buffer of (S, nt-1, 3,
 // 2 n_bnd (nz + nx)) floats, which every step fills, or null.  Receivers:
-// either a row (rec_z null; rec_row, rec_x0) or n_rec points (rec_z,
-// rec_x), validated by the caller.  Two launches a step: the fused step and
-// the record.
+// either a row (rec_z null; rec_row, rec_x0) or n_rec points (rec_z, rec_x)
+// with their table by tile (tile_ptr, tile_rec), built for tile_z x tile_x
+// tiles, validated by the caller; tiles other than the kernel's return
+// kErrTileMismatch before any launch.  nt launches for nt >= 2 (none
+// below): nt-1 fused steps, each recording the state it reads, and the
+// record-only launch of index nt-1.
 extern "C" int acoustic_forward(const float* mats, const float* prof_z,
                                 const float* prof_x, const float* stf,
                                 const int* src_z, const int* src_x,
                                 const int* rec_z, const int* rec_x,
+                                const int* tile_ptr, const int* tile_rec,
                                 float* fields, float* psi, float* data,
                                 float* strips, int S, int nz, int nx, int nt,
-                                int rec_row, int rec_x0, int n_rec, int npml,
-                                int n_bnd, int band_z_lo, int band_z_hi,
-                                int band_x_lo, int band_x_hi, float dt,
-                                float src_amp, void* stream) {
-  Params p{mats, prof_z, prof_x, stf, src_z, src_x, rec_z, rec_x, fields,
-           psi, data, strips, S, nz, nx, nt, rec_row, rec_x0, n_rec, dt,
-           src_amp, strip_geom(nz, nx, npml, n_bnd),
+                                int rec_row, int rec_x0, int n_rec,
+                                int tile_z, int tile_x, int npml, int n_bnd,
+                                int band_z_lo, int band_z_hi, int band_x_lo,
+                                int band_x_hi, float dt, float src_amp,
+                                void* stream) {
+  if (tile_z != kTileZ || tile_x != kTileX) return kErrTileMismatch;
+  if (nt < 2) return 0;  // the zeroed data: nothing to step or record
+  Params p{mats, prof_z, prof_x, stf, src_z, src_x, rec_z, rec_x, tile_ptr,
+           tile_rec, fields, psi, data, strips, S, nz, nx, nt, rec_row,
+           rec_x0, n_rec, dt, src_amp, strip_geom(nz, nx, npml, n_bnd),
            Band{band_z_lo, band_z_hi}, Band{band_x_lo, band_x_hi}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((nx + TX - 1) / TX, (nz + TZ - 1) / TZ, S);
-  const int rec_blocks = (S * n_rec + kRecThreads - 1) / kRecThreads;
-  for (int it = 0; it < nt - 1; ++it) {
-    const int cur = it & 1;
-    ac_fwd_step_kernel<<<grid, kTileThreads, 0, st>>>(p, it, cur);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    ac_record_kernel<<<rec_blocks, kRecThreads, 0, st>>>(p, it, cur ^ 1);
-    err = cudaGetLastError();
+  for (int it = 0; it < nt; ++it) {
+    // launch nt-1 records index nt-1 and steps no further
+    ac_fwd_step_kernel<<<grid, kTileThreads, 0, st>>>(p, it, it & 1,
+                                                      it == nt - 1);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;

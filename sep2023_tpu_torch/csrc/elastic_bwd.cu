@@ -36,12 +36,12 @@
 //     tile and a 2-cell halo, and the buoyancy gradients it accumulates;
 //     then, as a second group that arrives while the velocity phase runs,
 //     what the stress phase reads at its own cell, its three per-shot
-//     gradients among it, on the tile (86,400 bytes of dynamic shared
+//     gradients among it, on the tile (88,448 bytes of dynamic shared
 //     memory, two blocks an SM).  A phase reads a copied value only after
 //     the wait for its group and a __syncthreads();
 //   velocity phase, on the tile and a 2-cell halo: the cotangents of vz/vx
-//     after step it (carried, plus D1..D4 transposed, plus the receiver
-//     row's cotangent), vz/vx rebuilt before step it (interior increment
+//     after step it (carried, plus D1..D4 transposed, plus the receivers'
+//     cotangent), vz/vx rebuilt before step it (interior increment
 //     subtracted, strips injected), the velocity half-step's adjoint:
 //     psi5..psi8 recursions and the velocity stencils' cotangents D5..D8,
 //     all into shared memory; the owner of a cell writes its vz/vx, their
@@ -81,13 +81,25 @@
 // receivers.  A scatter would need atomics and would change the gradient
 // from run to run.  Instead the wrapper builds, once per plan, a table in
 // compressed-row form: one row per touched (adjoint plane, cell), its
-// entries (receiver, channel, coefficient) in a fixed order.  One extra
-// launch a step, inject_points_kernel, before the fused launch: one thread
-// per (shot, row) sums its entries against the data cotangent of recording
-// index it+1 and adds the sum to its cell of the carried adjoint plane (vz,
-// vx, szz or sxx; of vz and vx the buffer the fused launch reads next).  So
-// a fiber backward is 2 (nt-1) + 1 launches, a row backward (nt-1) + 1 with
-// the receivers found by arithmetic inside the launch.
+// entries (receiver, channel, coefficient) in a fixed order, and beside it
+// the table's rows by the tiles that add them (cuda_engine._injection_tiles,
+// built for kTileZ x kTileX tiles; elastic_backward refuses others).  The
+// fused step adds a row's sum against the data cotangent of recording index
+// it+1 (injection_sum, one __device__ function, the entries in table order)
+// to its shared copy of the carried cotangent.  Each thread sums its first
+// row of the tile's runs, and finds where in shared memory the row lands,
+// while the block's copies are in flight, so that the chain of dependent
+// loads (table, entries, data cotangent) overlaps them, and keeps both in
+// shared memory; the block adds a vz or vx row after the first cp.async
+// group has arrived, in every tile whose velocity phase reads
+// the row's cell (the tile and its 2-cell halo, so up to four tiles add the
+// same sum, each with the owner's bits), an szz or sxx row after the second
+// group has arrived, in the owner's tile alone (the stress phase reads its
+// own cells); each pass ends with a __syncthreads() only in a tile with rows
+// of its kind, a condition uniform over the block.  A row's cell appears
+// once in a tile's run, so no two threads add to one value.  So a backward
+// is (nt-1) + 1 launches for points as for a receiver row, whose receivers
+// are found by arithmetic inside the launch.
 //
 // What bounds it on this card: 215 FP32 operations per cell-step
 // (reconstruction, both adjoint phases, 8 stencils and 8 transposes, the
@@ -113,7 +125,6 @@ namespace {
 using namespace elastic;
 
 constexpr int kSumThreads = 256;
-constexpr int kInjThreads = 128;
 
 constexpr int TZ = kTileZ, TX = kTileX;
 constexpr int LZ = kHalo4Z, LX = kHalo4X;  // loaded, 4-cell halo
@@ -149,12 +160,17 @@ struct Params {
   const float* strips;  // (S, nt-1, 5, strip n)
   const float* d_data;  // (S, 4, R, nt)
   // point receivers: the injection table, or inj_ptr null for a receiver row
-  const int* inj_ptr;      // (n_inj + 1,) entry range of each row
-  const int* inj_plane;    // (n_inj,) InjPlane
-  const int* inj_cell;     // (n_inj,) z * nx + x
+  const int* inj_ptr;      // (n_rows + 1,) entry range of each row
+  const int* inj_plane;    // (n_rows,) InjPlane
+  const int* inj_cell;     // (n_rows,) z * nx + x
   const int* ent_rec;      // (n_ent,) receiver
   const int* ent_ch;       // (n_ent,) channel 0..3
   const float* ent_coef;   // (n_ent,)
+  // and its rows by tile: tile t's vz/vx rows (its tile and 2-cell halo) are
+  // tile_inj[tile_ptr[2t] : tile_ptr[2t+1]], its szz/sxx rows (its tile)
+  // tile_inj[tile_ptr[2t+1] : tile_ptr[2t+2]], each run in table order
+  const int* tile_ptr;     // (2 n_tiles + 1,)
+  const int* tile_inj;     // row indices
   float* fields;        // (2, 5, S, nz, nx): the final fields in buffer 0
   float* work;          // (15, S, nz, nx), zeroed
   float* psi;           // adjoint CPML memories, band storage, zeroed
@@ -162,7 +178,7 @@ struct Params {
   float* gmat;          // (5, nz, nx)
   float* d_stf;         // (S, nt), zeroed
   int S, nz, nx, nt;
-  int rec_row, rec_x0, n_rec, ett_ezz, n_inj, npml;
+  int rec_row, rec_x0, n_rec, ett_ezz, npml;
   float dt, src_amp;    // src_amp = src_scale * dt
   StripGeom sg;
   Band bz, bx;
@@ -211,25 +227,17 @@ __device__ __forceinline__ float d_rec(const Params& p, int s, int ch, int r,
                   it + 1];
 }
 
-// Point receivers' cotangent of recording index it + 1 (see the note at the
-// top): one thread per (shot, table row), entries summed in table order,
-// into the carried planes that the fused launch of the same step reads
-// (buffer cur of vz's and vx's).
-__global__ void inject_points_kernel(Params p, int it, int cur) {
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-  if (idx >= static_cast<size_t>(p.S) * p.n_inj) return;
-  const int s = static_cast<int>(idx / p.n_inj);
-  const int t = static_cast<int>(idx % p.n_inj);
+// The point receivers' cotangent that injection row t adds to its cell of
+// shot s at recording index it + 1 (see the note at the top): its entries
+// summed in table order.  The caller adds it to the carried cotangent,
+// carried + sum, as one rounded add.
+__device__ __forceinline__ float injection_sum(const Params& p, int s, int t,
+                                               int it) {
   float acc = 0.0f;
   for (int j = p.inj_ptr[t]; j < p.inj_ptr[t + 1]; ++j) {
     acc += p.ent_coef[j] * d_rec(p, s, p.ent_ch[j], p.ent_rec[j], it);
   }
-  const int plane = p.inj_plane[t];
-  const int k = plane == INJ_VZ ? W_A_VZ + cur
-                : plane == INJ_VX ? W_A_VX + cur
-                : plane == INJ_SZZ ? W_A_SZZ : W_A_SXX;
-  work(p, k, s)[p.inj_cell[t]] += acc;
+  return acc;
 }
 
 // Shared memory of bwd_step_kernel (dynamic), offsets in floats.  With the
@@ -239,19 +247,59 @@ __global__ void inject_points_kernel(Params p, int it, int cur) {
 // four of these planes and the rebuilt vz, vx in the last two; and psi5,
 // psi7 (z), psi6, psi8 (x) of buffer cur.  On the tile, the stress phase's
 // inputs: the stresses' cotangents, lam, lp2m, ave_mu, psi1, psi3 (z),
-// psi2, psi4 (x), and the 5 per-shot gradients.  A memory off its band,
-// like any cell off the grid, is copied in as 0 and never read.
+// psi2, psi4 (x), and the 5 per-shot gradients.  Last, the sum of each
+// thread's first point-receiver row and where it lands (an offset into
+// this memory, as int).  A memory off its band, like any cell off the
+// grid, is copied in as 0 and never read.
 constexpr int S_IN = 0;                   // 7 planes, 4-cell halo
 constexpr int S_V = S_IN + 7 * kH4;       // 6 planes, 2-cell halo
 constexpr int S_PV = S_V + 6 * kH2;       // 4 planes, 2-cell halo
 constexpr int S_T = S_PV + 4 * kH2;       // 6 planes, tile
 constexpr int S_PS = S_T + 6 * kT;        // 4 planes, tile
 constexpr int S_G = S_PS + 4 * kT;        // 5 planes, tile
-static_assert(S_G + 5 * kT == kBwdShared, "kBwdShared counts this layout");
+constexpr int S_INJ = S_G + 5 * kT;       // a point row's sum a thread
+constexpr int S_DST = S_INJ + kTileThreads;  // and where it lands
+static_assert(S_DST + kTileThreads == kBwdShared,
+              "kBwdShared counts this layout");
 enum InPlane { I_SZZ = 0, I_SXX, I_SXZ, I_D1, I_D2, I_D3, I_D4 };
 // the velocity phase's planes: inputs, then what it leaves there
 enum VelPlane { V_AVZ = 0, V_AVX, V_BYCA, V_BYCB, V_VZ, V_VX };
 enum VelOut { V_D5 = 0, V_D6, V_D7, V_D8 };
+
+// Where injection row t lands in the shared memory of the block whose tile
+// starts at (z0, x0): its cell in the copy of the carried cotangent of vz
+// or vx (the tile and its 2-cell halo) or of szz or sxx (the tile).
+__device__ __forceinline__ int row_offset(const Params& p, int t, int z0,
+                                          int x0) {
+  const int c = p.inj_cell[t];
+  const int lz = c / p.nx - z0, lx = c % p.nx - x0;
+  switch (p.inj_plane[t]) {
+    case INJ_VZ: return S_V + V_AVZ * kH2 + (lz + 2) * kHalo2X + lx + 2;
+    case INJ_VX: return S_V + V_AVX * kH2 + (lz + 2) * kHalo2X + lx + 2;
+    case INJ_SZZ: return S_T + lz * kTileX + lx;
+    default: return S_T + kT + lz * kTileX + lx;
+  }
+}
+
+// Adds rows k0 .. k1-1 of this tile's runs (from `first` in tile_inj) to
+// the carried cotangents they land on, carried + sum: the first
+// kTileThreads rows as their threads prepared them while the copies were in
+// flight, any further row summed now, by the same function.  Each row lands
+// on its own value, so no two threads add to one.
+__device__ __forceinline__ void add_rows(const Params& p, float* sm,
+                                         int first, int k0, int k1, int z0,
+                                         int x0, int s, int it) {
+  const int* s_dst = reinterpret_cast<const int*>(sm + S_DST);
+  for (int k = k0 + threadIdx.x; k < k1; k += kTileThreads) {
+    if (k < kTileThreads) {
+      sm[s_dst[k]] = sm[s_dst[k]] + sm[S_INJ + k];
+    } else {
+      const int t = p.tile_inj[first + k];
+      float* carried = sm + row_offset(p, t, z0, x0);
+      *carried = *carried + injection_sum(p, s, t, it);
+    }
+  }
+}
 
 // Reverse step it for a tile of one shot (see the note at the top); reads
 // buffer cur, writes buffer cur ^ 1.  Every value it reads comes into
@@ -268,6 +316,16 @@ bwd_step_kernel(Params p, int it, int cur) {
   const float* pz = p.prof_z;
   const float* px = p.prof_x;
   const float* any = p.mats;  // a valid address for the copies that read 0
+
+  // point receivers' rows of this tile: its vz/vx rows, then its szz/sxx
+  // rows, inj_first .. + n_inj in tile_inj
+  int inj_first = 0, n_inj_v = 0, n_inj = 0;
+  if (p.inj_ptr != nullptr) {
+    const int t = 2 * (blockIdx.y * gridDim.x + blockIdx.x);
+    inj_first = p.tile_ptr[t];
+    n_inj_v = p.tile_ptr[t + 1] - inj_first;
+    n_inj = p.tile_ptr[t + 2] - inj_first;
+  }
 
   for (int i = threadIdx.x; i < kH4; i += kTileThreads) {
     const int z = z0 - 4 + i / LX, x = x0 - 4 + i % LX;
@@ -342,6 +400,14 @@ bwd_step_kernel(Params p, int it, int cur) {
     }
   }
   cp_async_commit();
+  // each thread's first row, summed and placed while the copies are in
+  // flight
+  if (threadIdx.x < n_inj) {
+    const int t = p.tile_inj[inj_first + threadIdx.x];
+    reinterpret_cast<int*>(sm + S_DST)[threadIdx.x] = row_offset(p, t, z0,
+                                                                 x0);
+    sm[S_INJ + threadIdx.x] = injection_sum(p, s, t, it);
+  }
   cp_async_wait_group<1>();
   __syncthreads();
 
@@ -349,6 +415,13 @@ bwd_step_kernel(Params p, int it, int cur) {
   const float* s_sxx = sm + S_IN + I_SXX * kH4;
   const float* s_sxz = sm + S_IN + I_SXZ * kH4;
   float* s_v = sm + S_V;
+
+  // the vz/vx rows into the carried cotangents on the tile and its 2-cell
+  // halo, before the velocity phase reads them; the szz/sxx rows below
+  if (n_inj_v > 0) {
+    add_rows(p, sm, inj_first, 0, n_inj_v, z0, x0, s, it);
+    __syncthreads();
+  }
 
   // velocity phase on the tile and a 2-cell halo
 #pragma unroll 1
@@ -370,7 +443,7 @@ bwd_step_kernel(Params p, int it, int cur) {
                    + tile_dz_plus_t<LX>(sm + S_IN + I_D3 * kH4, v);
 
     // a receiver row's cotangent (propagator._record transposed); point
-    // receivers' arrived in the carried planes (inject_points_kernel)
+    // receivers' were added to the carried planes above
     if (p.inj_ptr == nullptr) {
       const int r = x - p.rec_x0;
       const bool on_row = r >= 0 && r < p.n_rec;
@@ -480,6 +553,13 @@ bwd_step_kernel(Params p, int it, int cur) {
   cp_async_wait_group<0>();  // the second phase's inputs
   __syncthreads();
 
+  // point receivers' szz/sxx rows of this tile, into the stresses' carried
+  // cotangents on the tile
+  if (n_inj > n_inj_v) {
+    add_rows(p, sm, inj_first, n_inj_v, n_inj, z0, x0, s, it);
+    __syncthreads();
+  }
+
   // stress phase on the tile
   const float* s_d5 = s_v + V_D5 * kH2;
   const float* s_d6 = s_v + V_D6 * kH2;
@@ -497,8 +577,9 @@ bwd_step_kernel(Params p, int it, int cur) {
     const int v = (lz + 4) * LX + lx + 4;
     const size_t c = static_cast<size_t>(z) * nx + x;
 
-    // total cotangents of the stresses after step it: carried, plus the
-    // velocity stencils transposed, plus pr on a receiver row
+    // total cotangents of the stresses after step it: carried (with the
+    // point receivers' pr), plus the velocity stencils transposed, plus pr
+    // on a receiver row
     float szz_bar = sm[S_T + j] + tile_dz_plus_t<VX>(s_d5, t);
     float sxx_bar = sm[S_T + kT + j] + tile_dx_plus_t<VX>(s_d8, t);
     const float sxz_bar = sm[S_T + 2 * kT + j]
@@ -619,12 +700,48 @@ __global__ void sum_shots_kernel(Params p) {
   p.gmat[idx] = acc;
 }
 
+int launch_sum_shots(const Params& p, cudaStream_t st) {
+  const size_t n = kNumFields * static_cast<size_t>(p.nz) * p.nx;
+  const int blocks = static_cast<int>((n + kSumThreads - 1) / kSumThreads);
+  sum_shots_kernel<<<blocks, kSumThreads, 0, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// The blocks of bwd_step_kernel, with its dynamic shared memory, that one SM
+// of this device holds at once, into out[0]; returns the CUDA error (0 on
+// success).
+extern "C" int elastic_backward_plan(int* out) {
+  const int smem = static_cast<int>(kBwdShared * sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], bwd_step_kernel, kTileThreads, smem));
+}
+
+// The shot sum alone, as elastic_backward launches it after its reverse
+// steps: gmat (5, nz, nx) = the sum over s = 0 .. S-1, in that order, of
+// gshot (S, 5, nz, nx).  For timing it against its bound and against one
+// PyTorch call; returns the CUDA error (0 on success).
+extern "C" int elastic_sum_shots(float* gshot, float* gmat, int S, int nz,
+                                 int nx, void* stream) {
+  Params p{};
+  p.gshot = gshot;
+  p.gmat = gmat;
+  p.S = S;
+  p.nz = nz;
+  p.nx = nx;
+  return launch_sum_shots(p, static_cast<cudaStream_t>(stream));
+}
+
 // Runs the nt-1 reverse steps for all shots and the shot sum on `stream`
-// ((nt-1) + 1 launches for a receiver row, 2 (nt-1) + 1 with an injection
-// table of n_inj rows for point receivers, inj_ptr null and n_inj 0
-// otherwise); returns the first CUDA error (0 on success).
+// ((nt-1) + 1 launches, for a receiver row and for point receivers alike:
+// inj_ptr null for a row, else the injection table and its rows by tile,
+// tile_ptr and tile_inj, built for tile_z x tile_x tiles; tiles other than
+// the kernel's return kErrTileMismatch before any launch); returns the first
+// CUDA error (0 on success).
 // Does not synchronise and allocates nothing: `fields` (2, 5, S, nz, nx)
 // holds the final fields in buffer 0 and returns the fields reconstructed
 // at t=0 in buffer (nt-1) % 2; `work` (15, S, nz, nx), `psi` (the adjoint
@@ -638,19 +755,22 @@ extern "C" int elastic_backward(const float* mats, const float* prof_z,
                                 const float* d_data, const int* inj_ptr,
                                 const int* inj_plane, const int* inj_cell,
                                 const int* ent_rec, const int* ent_ch,
-                                const float* ent_coef, float* fields,
+                                const float* ent_coef, const int* tile_ptr,
+                                const int* tile_inj, float* fields,
                                 float* work, float* psi, float* gshot,
                                 float* gmat, float* d_stf, int S, int nz,
                                 int nx, int nt, int rec_row, int rec_x0,
-                                int n_rec, int ett_mode, int n_inj, int npml,
-                                int n_bnd, int band_z_lo, int band_z_hi,
-                                int band_x_lo, int band_x_hi, float dt,
-                                float src_amp, void* stream) {
+                                int n_rec, int ett_mode, int tile_z,
+                                int tile_x, int npml, int n_bnd,
+                                int band_z_lo, int band_z_hi, int band_x_lo,
+                                int band_x_hi, float dt, float src_amp,
+                                void* stream) {
+  if (tile_z != kTileZ || tile_x != kTileX) return kErrTileMismatch;
   Params p{mats, prof_z, prof_x, stf, src_z, src_x, rxz, strips, d_data,
            inj_ptr, inj_plane, inj_cell, ent_rec, ent_ch, ent_coef,
-           fields, work, psi, gshot, gmat, d_stf, S, nz, nx, nt, rec_row,
-           rec_x0, n_rec, ett_mode == elastic::ETT_EZZ, n_inj, npml, dt,
-           src_amp, strip_geom(nz, nx, npml, n_bnd),
+           tile_ptr, tile_inj, fields, work, psi, gshot, gmat, d_stf, S, nz,
+           nx, nt, rec_row, rec_x0, n_rec, ett_mode == elastic::ETT_EZZ,
+           npml, dt, src_amp, strip_geom(nz, nx, npml, n_bnd),
            Band{band_z_lo, band_z_hi}, Band{band_x_lo, band_x_hi}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int smem = static_cast<int>(kBwdShared * sizeof(float));
@@ -658,22 +778,11 @@ extern "C" int elastic_backward(const float* mats, const float* prof_z,
       bwd_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((nx + TX - 1) / TX, (nz + TZ - 1) / TZ, S);
-  const size_t inj_threads = static_cast<size_t>(S) * n_inj;
-  const int inj_blocks =
-      static_cast<int>((inj_threads + kInjThreads - 1) / kInjThreads);
   for (int k = 0; k < nt - 1; ++k) {
     const int it = nt - 2 - k, cur = k & 1;
-    if (inj_ptr != nullptr) {
-      inject_points_kernel<<<inj_blocks, kInjThreads, 0, st>>>(p, it, cur);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
     bwd_step_kernel<<<grid, kTileThreads, smem, st>>>(p, it, cur);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const size_t n = kNumFields * static_cast<size_t>(nz) * nx;
-  const int blocks = static_cast<int>((n + kSumThreads - 1) / kSumThreads);
-  sum_shots_kernel<<<blocks, kSumThreads, 0, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return launch_sum_shots(p, st);
 }

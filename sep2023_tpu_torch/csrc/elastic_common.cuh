@@ -240,9 +240,9 @@ constexpr int kT = kTileZ * kTileX;
 // stresses and D1..D4 with the 4-cell halo; the cotangents of vz, vx, the
 // velocities, 2 buoyancies and 4 memories with the 2-cell halo; the
 // stresses' cotangents, 3 material planes, 4 memories and 5 gradients on
-// the tile.
+// the tile; and a point receivers' cotangent sum and its place a thread.
 constexpr int kFwdShared = 2 * kH4 + 10 * kH2 + 6 * kT;
-constexpr int kBwdShared = 7 * kH4 + 10 * kH2 + 15 * kT;
+constexpr int kBwdShared = 7 * kH4 + 10 * kH2 + 15 * kT + 2 * kTileThreads;
 // The forward's is static (48 KiB at most a block); the backward's is set
 // per launch as dynamic shared memory, two blocks of it an SM (228 KiB, 1
 // KiB of it reserved a block).
@@ -250,6 +250,11 @@ static_assert(kFwdShared * sizeof(float) <= 48 * 1024,
               "static shared memory of fwd_step_kernel");
 static_assert(2 * (kBwdShared * sizeof(float) + 1024) <= 228 * 1024,
               "two blocks of bwd_step_kernel an SM");
+
+// What elastic_forward, elastic_backward and acoustic_forward return, before
+// any launch, for a receiver table built for other tiles than kTileZ x
+// kTileX (elastic_error_string names it).
+constexpr int kErrTileMismatch = -1;
 
 // The stencils and transposes above on a tile held in shared memory with
 // row pitch W, at flat index i: the same operands in the same order, so the

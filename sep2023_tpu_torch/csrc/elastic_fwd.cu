@@ -520,10 +520,6 @@ extern "C" int elastic_forward_plan(int* out) {
       &out[0], fwd_step_kernel, kTileThreads, 0));
 }
 
-// elastic_forward's error for a point table built for other tiles than
-// kTileZ x kTileX (elastic_error_string names it).
-constexpr int kErrTileMismatch = -1;
-
 // Runs all nt-1 steps for all shots on `stream`, and records at every
 // index; returns the first CUDA error (0 on success).  Does not synchronise
 // and allocates nothing: the caller passes zeroed fields (2, 5, S, nz, nx),
@@ -602,8 +598,8 @@ extern "C" int elastic_illumination(const float* mats, const float* prof_z,
   return 0;
 }
 
-// Message for an error code returned by elastic_forward or
-// elastic_backward.
+// Message for an error code returned by elastic_forward,
+// elastic_backward or acoustic_forward.
 extern "C" const char* elastic_error_string(int err) {
   if (err == kErrTileMismatch) {
     return "the receiver table was built for other tiles than the kernel's "

@@ -104,18 +104,22 @@ def load() -> ctypes.CDLL:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.elastic_forward.argtypes = [P] * 16 + [I] * 16 + [F] * 4 + [P]
         lib.elastic_forward.restype = I
-        lib.elastic_backward.argtypes = [P] * 21 + [I] * 15 + [F, F, P]
+        lib.elastic_backward.argtypes = [P] * 23 + [I] * 16 + [F, F, P]
         lib.elastic_backward.restype = I
         lib.elastic_tile_plan.argtypes = [P]
         lib.elastic_tile_plan.restype = None
         lib.elastic_illumination.argtypes = [P] * 10 + [I] * 8 + [F, F, P]
         lib.elastic_illumination.restype = I
-        lib.acoustic_forward.argtypes = [P] * 12 + [I] * 13 + [F, F, P]
+        lib.acoustic_forward.argtypes = [P] * 14 + [I] * 15 + [F, F, P]
         lib.acoustic_forward.restype = I
         lib.acoustic_backward.argtypes = [P] * 21 + [I] * 14 + [F, F, P]
         lib.acoustic_backward.restype = I
-        for name in ("elastic_forward_plan", "acoustic_forward_plan",
-                     "acoustic_backward_plan"):
+        lib.elastic_sum_shots.argtypes = [P, P, I, I, I, P]
+        lib.elastic_sum_shots.restype = I
+        lib.acoustic_sum_shots.argtypes = [P, P, I, I, I, I, P]
+        lib.acoustic_sum_shots.restype = I
+        for name in ("elastic_forward_plan", "elastic_backward_plan",
+                     "acoustic_forward_plan", "acoustic_backward_plan"):
             getattr(lib, name).argtypes = [P]
             getattr(lib, name).restype = I
         lib.elastic_error_string.argtypes = [I]

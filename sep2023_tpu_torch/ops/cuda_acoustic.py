@@ -29,7 +29,11 @@ The kernels run one fused launch a step over the elastic kernels' tiles in
 shared memory, with the fields and what a step reads at neighbours held
 twice, and the CPML memories only in their bands
 (`cuda_engine.cpml_bands`); `state_floats_per_shot` counts what a gradient
-holds a shot.
+holds a shot.  The forward records inside its fused step, from the state
+the step reads, points through the plan's table by tile
+(`cuda_engine._tile_table`, built for `cuda_engine.TILE`; the kernel
+refuses a table of other tiles), and one record-only launch of the same
+kernel records the last sample: nt launches a forward.
 
 The wrappers take their plain versions only for tensors that lie on the
 CPU.  On CUDA tensors they launch the kernels or raise.  `LAUNCHES_AC` and
@@ -56,9 +60,10 @@ from sep2023_tpu_torch.ops.cuda_engine import (PLAIN_CALLS, FastPlan,
                                                _row_args, band_floats,
                                                cpml_bands)
 
-# Kernel launches made by forward_cuda_acoustic_plan: 2 per time step (the
-# fused step, record), with or without strip saving, row or point
-# receivers.
+# Kernel launches made by forward_cuda_acoustic_plan: nt a forward (nt-1
+# fused steps, each recording the state it reads, and one record-only
+# launch of the same kernel for the last sample), with or without strip
+# saving, row or point receivers.
 LAUNCHES_AC = 0
 # The part of LAUNCHES_AC made with strip saving (the gradient's and the
 # image's forward).
@@ -87,9 +92,9 @@ N_CHANNELS = len(acoustic.AC_CHANNELS)
 
 
 def launches_forward_acoustic(cfg: SimConfig) -> int:
-    """Launches of one forward_cuda_acoustic_plan call on the card: 2 a
-    step."""
-    return 2 * (cfg.nt - 1)
+    """Launches of one forward_cuda_acoustic_plan call on the card: nt
+    (nt-1 fused steps and the record-only launch), none for nt < 2."""
+    return cfg.nt if cfg.nt > 1 else 0
 
 
 def launches_backward_acoustic(cfg: SimConfig, rs) -> int:
@@ -211,7 +216,8 @@ def forward_cuda_acoustic_plan(plan: FastPlan, lam, rho, stf, src_z, src_x,
     (3, S, nz, nx)).
 
     CPU tensors run the plain versions; CUDA tensors run the kernel, at any
-    grid size."""
+    grid size: nt launches (`launches_forward_acoustic`), the last one
+    recording only."""
     global LAUNCHES_AC, LAUNCHES_AC_STRIPS
     cfg, rs = plan.cfg, plan.rs
     src = _check_inputs(plan, lam, rho, stf, src_z, src_x)
@@ -229,6 +235,8 @@ def forward_cuda_acoustic_plan(plan: FastPlan, lam, rho, stf, src_z, src_x,
         prof_z, prof_x = _profiles(cfg, device)
         rec = plan.receivers(device, acoustic=True)
         rec_z, rec_x = (None, None) if rec is None else rec[:2]
+        tile_ptr, tile_rec, tile = (None, None, cuda_engine.TILE) \
+            if rec is None else rec[4]
         zeros = lambda *shape: torch.zeros(shape, device=device,
                                            dtype=torch.float32)
         fields = zeros(2, acoustic.AC_N_FIELDS, S, cfg.nz, cfg.nx)
@@ -241,9 +249,11 @@ def forward_cuda_acoustic_plan(plan: FastPlan, lam, rho, stf, src_z, src_x,
         err = lib.acoustic_forward(
             mats.data_ptr(), prof_z.data_ptr(), prof_x.data_ptr(),
             stf.data_ptr(), *(t.data_ptr() for t in src),
-            _ptr(rec_z), _ptr(rec_x), fields.data_ptr(), psi.data_ptr(),
+            _ptr(rec_z), _ptr(rec_x), _ptr(tile_ptr), _ptr(tile_rec),
+            fields.data_ptr(), psi.data_ptr(),
             data.data_ptr(), _ptr(strips), S, cfg.nz, cfg.nx, cfg.nt,
-            *_row_args(rs), cfg.npml, cfg.n_bnd_layers, *cpml_bands(cfg),
+            *_row_args(rs), *tile, cfg.npml, cfg.n_bnd_layers,
+            *cpml_bands(cfg),
             ctypes.c_float(cfg.dt), ctypes.c_float(cfg.src_scale * cfg.dt),
             stream)
     _raise_on(lib, err, "acoustic_forward")

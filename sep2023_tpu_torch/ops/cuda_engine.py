@@ -33,16 +33,18 @@ record-only launch of the same kernel after the last step records the last
 sample: nt launches a forward, for a receiver row and for points alike.
 Points are recorded by the tile that owns their cell, from a per-plan table
 by tile (`_tile_table`, built for `TILE`; the kernel refuses a table of
-other tiles).
+other tiles).  The backward adds the points' cotangents inside its fused
+reverse step, from the injection table and its rows by the tiles that read
+them (`_injection_tiles`, built for `TILE` too): nt launches a backward,
+nt-1 fused steps and the shot sum, for a receiver row and for points alike.
 
 The wrappers take their plain versions only for tensors that lie on the
 CPU.  On CUDA tensors they launch the kernels or raise: they never drop to
 the plain versions or to the CPU.  `LAUNCHES` and `LAUNCHES_BWD` count the
 kernel launches (`LAUNCHES_STRIPS` the forward's with strip saving,
-`LAUNCHES_FIBER` the record-only launches of point-receiver forwards and
-`LAUNCHES_BWD_FIBER` the backward's point-injection launches among them)
-and `PLAIN_CALLS` the calls of each plain version, so a run can show which
-path it went through.
+`LAUNCHES_FIBER` the record-only launches of point-receiver forwards among
+them) and `PLAIN_CALLS` the calls of each plain version, so a run can show
+which path it went through.
 """
 from __future__ import annotations
 
@@ -72,12 +74,9 @@ LAUNCHES_STRIPS = 0
 # 1 a FiberSurvey forward (its steps record inside the fused step).
 LAUNCHES_FIBER = 0
 # Kernel launches made by backward_cuda_plan and reconstruct_cuda_plan: 1 a
-# step (the fused reverse step) and 1 shot sum; with a FiberSurvey 2 per
-# time step (the point injection first) and 1 shot sum.
+# step (the fused reverse step, which adds point receivers' cotangents
+# itself) and 1 shot sum, row or point receivers.
 LAUNCHES_BWD = 0
-# The part of LAUNCHES_BWD that injected point cotangents
-# (inject_points_kernel): 1 per time step of a FiberSurvey backward.
-LAUNCHES_BWD_FIBER = 0
 # Kernel launches made by illumination_cuda_plan: 1 a step (the fused step
 # with the illumination accumulator, no record).
 LAUNCHES_ILL = 0
@@ -106,8 +105,8 @@ N_GRAD_PLANES = 5
 N_BAND_PLANES = 6
 
 ETT_MODES = {"exx": 0, "ezz": 1, "weighted": 2}  # EttMode, elastic_common.cuh
-# (kTileZ, kTileX) of csrc/elastic_common.cuh: the tiles the point table is
-# built for; elastic_forward refuses a table built for others.
+# (kTileZ, kTileX) of csrc/elastic_common.cuh: the tiles the point tables
+# are built for; the kernels refuse tables built for others.
 TILE = (16, 32)
 # Adjoint planes of the work buffer that take receiver cotangents (InjPlane,
 # elastic_bwd.cu).
@@ -122,10 +121,10 @@ def launches_forward(cfg: SimConfig) -> int:
 
 
 def launches_backward(cfg: SimConfig, rs) -> int:
-    """Launches of one backward_cuda_plan call on the card: 1 a step for a
-    receiver row, 2 for point receivers, and the shot sum."""
-    per_step = 2 if isinstance(rs, FiberSurvey) else 1
-    return per_step * (cfg.nt - 1) + 1
+    """Launches of one backward_cuda_plan call on the card: nt, the nt-1
+    fused reverse steps and the shot sum, for a receiver row and for point
+    receivers (rs, the plan's survey) alike."""
+    return cfg.nt
 
 
 @functools.lru_cache(maxsize=64)
@@ -360,6 +359,41 @@ def _tile_table(cfg: SimConfig, fs: FiberSurvey, tile):
     return i32(ptr), i32(rec)
 
 
+def _injection_tiles(cfg: SimConfig, plane, cell, tile):
+    """The rows of an injection table (`_injection_table`'s plane and
+    cell) by the tiles of tile = (z, x) cells whose fused reverse step adds
+    them: a vz or vx row in every tile whose 2-cell halo around it holds the
+    row's cell (the velocity phase reads it there; up to four tiles), an
+    szz or sxx row in the tile that owns its cell (the stress phase reads
+    it on the tile alone).  Tiles numbered row-major as in `_tile_table`.
+    Returns int32 tile_ptr (2 n_tiles + 1) and the row indices: tile t's
+    vz/vx rows are rows[tile_ptr[2t]:tile_ptr[2t + 1]], its szz/sxx rows
+    rows[tile_ptr[2t + 1]:tile_ptr[2t + 2]], each run in table order."""
+    tz, tx = tile
+    n_tz, n_tx = -(-cfg.nz // tz), -(-cfg.nx // tx)
+    plane = np.asarray(plane, np.int64)
+    cell = np.asarray(cell, np.int64)
+    z, x = cell // cfg.nx, cell % cfg.nx
+    stress = (plane == _A_SZZ) | (plane == _A_SXX)
+    halo = np.where(stress, 0, 2)
+    row = np.arange(len(plane))
+    keys, rows = [], []
+    for dz in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            ty, tx_ = z // tz + dz, x // tx + dx
+            keep = ((ty >= 0) & (ty < n_tz) & (tx_ >= 0) & (tx_ < n_tx)
+                    & (z >= ty * tz - halo) & (z < (ty + 1) * tz + halo)
+                    & (x >= tx_ * tx - halo) & (x < (tx_ + 1) * tx + halo))
+            keys.append((2 * (ty * n_tx + tx_) + stress)[keep])
+            rows.append(row[keep])
+    key, row = np.concatenate(keys), np.concatenate(rows)
+    order = np.lexsort((row, key))
+    ptr = np.concatenate(
+        [[0], np.cumsum(np.bincount(key, minlength=2 * n_tz * n_tx))])
+    return (np.ascontiguousarray(ptr, np.int32),
+            np.ascontiguousarray(row[order], np.int32))
+
+
 def _as_numpy(a, dtype):
     if isinstance(a, torch.Tensor):
         a = a.detach().cpu().numpy()
@@ -388,8 +422,11 @@ class FastPlan:
         """Point receivers' device tables: (rec_z, rec_x int32 (R,), rec_w
         float32 (R, 3) or None, the injection table of 6 tensors, the
         recording table by tile (tile_ptr, tile_rec, the `TILE` it was
-        built for)); None for a RowSurvey.  acoustic: the tables of the
-        acoustic kernels (no weights, the acoustic injection table)."""
+        built for), the injection table's rows by tile (tile_ptr,
+        tile_inj, the `TILE` they were built for)); None for a RowSurvey.
+        acoustic: the tables of the acoustic kernels (no weights, the
+        acoustic injection table, no injection rows by tile: the acoustic
+        backward injects in a launch of its own)."""
         if not isinstance(self.rs, FiberSurvey):
             return None
         hit = self._receivers.get((device, acoustic))
@@ -400,11 +437,16 @@ class FastPlan:
             if self.cfg.das_channel == "weighted" and not acoustic:
                 rec_w = up(np.ascontiguousarray(rs.weights, np.float32))
             tile_ptr, tile_rec = _tile_table(self.cfg, rs, TILE)
+            table = _injection_table(self.cfg, rs, acoustic)
+            inj_tiles = None
+            if not acoustic:
+                inj_ptr, inj_rows = _injection_tiles(self.cfg, table[1],
+                                                     table[2], TILE)
+                inj_tiles = (up(inj_ptr), up(inj_rows), TILE)
             hit = (up(np.ascontiguousarray(rs.rec_z, np.int32)),
                    up(np.ascontiguousarray(rs.rec_x, np.int32)), rec_w,
-                   tuple(up(a) for a in _injection_table(self.cfg, rs,
-                                                         acoustic)),
-                   (up(tile_ptr), up(tile_rec), TILE))
+                   tuple(up(a) for a in table),
+                   (up(tile_ptr), up(tile_rec), TILE), inj_tiles)
             self._receivers[(device, acoustic)] = hit
         return hit
 
@@ -730,7 +772,7 @@ def _backward_kernel(plan: FastPlan, lam, mu, rho, stf, src, final, strips,
                      d_data):
     """Launch elastic_backward on CUDA tensors: (gmat (5, nz, nx), d_stf
     (S, nt), fields reconstructed at t=0 (5, S, nz, nx))."""
-    global LAUNCHES_BWD, LAUNCHES_BWD_FIBER
+    global LAUNCHES_BWD
     cfg, rs = plan.cfg, plan.rs
     device = lam.device
     lib = _load(device)
@@ -740,7 +782,8 @@ def _backward_kernel(plan: FastPlan, lam, mu, rho, stf, src, final, strips,
         prof_z, prof_x = _profiles(cfg, device)
         rec = plan.receivers(device)
         table = (None,) * 6 if rec is None else rec[3]
-        n_inj = 0 if rec is None else table[1].shape[0]
+        tile_ptr, tile_inj, tile = (None, None, TILE) if rec is None \
+            else rec[5]
         zeros = lambda *shape: torch.zeros(shape, device=device,
                                            dtype=torch.float32)
         fields = torch.empty((2, 5, S, cfg.nz, cfg.nx), device=device,
@@ -757,16 +800,15 @@ def _backward_kernel(plan: FastPlan, lam, mu, rho, stf, src, final, strips,
             mats.data_ptr(), prof_z.data_ptr(), prof_x.data_ptr(),
             stf.data_ptr(), *(t.data_ptr() for t in src),
             strips.data_ptr(), d_data.data_ptr(), *(_ptr(t) for t in table),
-            fields.data_ptr(), work.data_ptr(), psi.data_ptr(),
+            _ptr(tile_ptr), _ptr(tile_inj), fields.data_ptr(),
+            work.data_ptr(), psi.data_ptr(),
             gshot.data_ptr(), gmat.data_ptr(), d_stf.data_ptr(),
             S, cfg.nz, cfg.nx, cfg.nt, *_row_args(rs),
-            ETT_MODES[cfg.das_channel], n_inj, cfg.npml, cfg.n_bnd_layers,
+            ETT_MODES[cfg.das_channel], *tile, cfg.npml, cfg.n_bnd_layers,
             *cpml_bands(cfg), ctypes.c_float(cfg.dt),
             ctypes.c_float(cfg.src_scale * cfg.dt), stream)
     _raise_on(lib, err, "elastic_backward")
     LAUNCHES_BWD += launches_backward(cfg, rs)
-    if rec is not None:
-        LAUNCHES_BWD_FIBER += cfg.nt - 1
     return gmat, d_stf, fields[(cfg.nt - 1) % 2]
 
 

@@ -50,8 +50,11 @@ AC_INTERIOR = 2
 # would show: grid sides that are not multiples of the tile, a grid smaller
 # than one tile, a CPML band wider than a tile, and sources, a receiver
 # row's first and last receiver and fiber points on the cells either side
-# of a tile edge, the last case with some cells visited two to four times
-# (each receiver records its own sample in the tile that owns its cell).
+# of a tile edge, one case with some cells visited two to four times
+# (each receiver records its own sample in the tile that owns its cell),
+# and one with points on the last cell inside a neighbour tile's 2-cell
+# halo and the first cell outside it (the backward adds a vz or vx
+# cotangent in every tile whose velocity phase reads its cell).
 # Each: (physical nz, nx, npml, nt, das_channel, padded (src_z, src_x) of
 # each shot, receivers): receivers ("row", rec_row, rec_x0, n_rec) or
 # ("points", rec_z, rec_x) with the weighted channel's weights (1, 0.5,
@@ -68,6 +71,13 @@ _DUP_Z = np.concatenate([np.repeat(_EDGES_Z, len(_EDGES_X)),
                          [15, 15, 16, 48, 48, 48]])
 _DUP_X = np.concatenate([np.tile(_EDGES_X, len(_EDGES_Z)),
                          [31, 32, 31, 64, 64, 64]])
+# either side of the tile edges at z = 16 and x = 32: rows 14 and 17 and
+# columns 30 and 33 are the last inside the neighbour's 2-cell halo, rows
+# 13 and 18 and columns 29 and 34 the first outside it; then (14, 30) twice
+# more and (17, 33) once more
+_HALO_Z, _HALO_X = (13, 14, 17, 18), (29, 30, 33, 34)
+_HALO_PZ = np.concatenate([np.repeat(_HALO_Z, len(_HALO_X)), [14, 14, 17]])
+_HALO_PX = np.concatenate([np.tile(_HALO_X, len(_HALO_Z)), [30, 30, 33]])
 TILE_EDGE_CASES = {
     "ragged tiles": (45, 61, 10, 260, "exx", ((11, 20), (11, 60)),
                      ("row", 48, 20, 41)),
@@ -89,6 +99,11 @@ TILE_EDGE_CASES = {
         ("points", _DUP_Z, _DUP_X,
          np.random.default_rng(TILE_EDGE_SEED).uniform(
              0.25, 1.0, (len(_DUP_Z), 3)))),
+    "points by a neighbour's halo": (
+        44, 76, 10, 260, "weighted", ((11, 40), (11, 70)),
+        ("points", _HALO_PZ, _HALO_PX,
+         np.random.default_rng(TILE_EDGE_SEED + 1).uniform(
+             0.25, 1.0, (len(_HALO_PZ), 3)))),
 }
 
 
@@ -96,8 +111,9 @@ TILE_EDGE_CASES = {
 # csrc/acoustic_bwd.cu, on the same tiles): grid sides that are not
 # multiples of the tile, a grid under one tile, a CPML band wider than a
 # tile, sources and a receiver row's first and last receivers on tile edges,
-# and point receivers on the cells either side of tile edges with some of
-# them visited two to four times.  Each: (physical nz, nx, npml, nt, padded
+# point receivers on the cells either side of tile edges with some of them
+# visited two to four times, and point receivers either side of a
+# neighbour's 2-cell halo.  Each: (physical nz, nx, npml, nt, padded
 # (src_z, src_x) of each shot, receivers ("row", rec_row, rec_x0, n_rec) or
 # ("points", rec_z, rec_x)), padded-grid indices; 20 m, 2 ms, 10 Hz, the
 # anomaly model with lam = rho vp^2 (acoustic_args).  On each the tight
@@ -116,6 +132,9 @@ AC_TILE_EDGE_CASES = {
     "duplicate points on tile edges": (
         44, 76, 10, 260, ((11, 40), (11, 70)),
         ("points", _DUP_Z, _DUP_X)),
+    "points by a neighbour's halo": (
+        44, 76, 10, 260, ((11, 40), (11, 70)),
+        ("points", _HALO_PZ, _HALO_PX)),
 }
 
 
@@ -224,6 +243,19 @@ def fiber_problem(name, *, device):
     rec_z, rec_x, das_w = _fiber_receivers(name, dh)
     return cfg, cuda_engine.make_fiber_survey(rec_z + npml, rec_x + npml,
                                               das_w), args
+
+
+def doubling_cable():
+    """A 64x96 grid and a cable along row 30 from x=20 to 44 that turns
+    back along the same cells to x=30, then drops to row 31: its cells from
+    x=30 to 43 hold two receivers each, across the tile edge at x=32.
+    (cfg, FiberSurvey), padded-grid indices."""
+    cfg = SimConfig(nz=64, nx=96, dz=20.0, dx=20.0, nt=11, dt=0.002,
+                    f0=10.0, npml=10)
+    rec_x = np.concatenate([np.arange(20, 45), np.arange(43, 29, -1),
+                            np.arange(30, 36)])
+    rec_z = np.concatenate([np.full(25 + 14, 30), np.full(6, 31)])
+    return cfg, cuda_engine.make_fiber_survey(rec_z, rec_x)
 
 
 def acoustic_args(args):

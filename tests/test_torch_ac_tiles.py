@@ -112,14 +112,16 @@ def test_plain_acoustic_memories_vanish_outside_the_bands():
 @pytest.mark.parametrize("grid", ["reference 165x265", "814x2064",
                                   "tile edges: grid under one tile"])
 def test_acoustic_launch_and_plane_counts(grid):
-    """2 launches a forward step (fused step, record); 1 a reverse step for
-    a receiver row and 2 for point receivers, and the shot sum; 21 planes
-    of nz x nx a shot (final fields, the double-buffered fields, 9 work
-    planes, 3 gradients) and 3 band planes of CPML memory of each axis."""
+    """nt launches a forward (nt-1 fused steps, each recording the state
+    it reads, and the record-only launch of the last sample); 1 a reverse
+    step for a receiver row and 2 for point receivers, and the shot sum; 21
+    planes of nz x nx a shot (final fields, the double-buffered fields, 9
+    work planes, 3 gradients) and 3 band planes of CPML memory of each
+    axis."""
     _, cfg = _cfgs(*GRIDS[grid], nt=1501)
     row = ce.RowSurvey(cfg.npml + 2, 3, 5)
     fiber = ce.make_fiber_survey([5, 6], [7, 8])
-    assert ca.launches_forward_acoustic(cfg) == 2 * 1500
+    assert ca.launches_forward_acoustic(cfg) == 1500 + 1
     assert ca.launches_backward_acoustic(cfg, row) == 1500 + 1
     assert ca.launches_backward_acoustic(cfg, fiber) == 2 * 1500 + 1
     assert (ca.N_STATE_PLANES, ca.N_WORK_PLANES, ca.N_GRAD_PLANES,

@@ -13,7 +13,8 @@ data, strips and final fields bitwise equal to plain, gradients, a second
 backward bitwise, the reconstruction residual equal to plain's, the image
 and illumination.  The elastic illumination kernel (the fused step with its
 accumulator) bitwise equal to imaging.source_illumination.  A point table
-built for other tiles than the kernel's raises.  These mirror
+built for other tiles than the kernel's raises, in the elastic forward and
+backward and in the acoustic forward.  These mirror
 phases 3, 7-10, 12, 17, 19e, 20 and 21 of chip_smoke.py; they need a CUDA
 device and nvcc, and skip without a card:
 
@@ -31,7 +32,7 @@ from sep2023_tpu_torch.testing import (AC_CASES, AC_INTERIOR,
                                        RECON_RATIO, ROW_CASES,
                                        TILE_EDGE_CASES, TILE_EDGE_SEED,
                                        ac_perturbed_cotangent, ac_problem,
-                                       ac_tile_edge_problem,
+                                       ac_tile_edge_problem, acoustic_args,
                                        adjoint_gap, fiber_problem,
                                        grad_errors, max_rel,
                                        perturbed_cotangent,
@@ -151,21 +152,20 @@ def test_fiber_forward_matches_plain(cuda, case):
 
 @pytest.mark.parametrize("case", list(FIBER_CASES))
 def test_fiber_backward_matches_plain(cuda, case):
-    """inject_points_kernel inside the backward: gradients, the same bits on
-    a second run, one injection launch a step, and the adjoint identity."""
+    """The point receivers' cotangents added inside the fused reverse step:
+    gradients, the same bits on a second run, nt launches a backward, and
+    the adjoint identity."""
     cfg, rs, args = fiber_problem(case, device=cuda)
     plan = cuda_engine.plan_for(cfg, rs)
     syn, strips, final = cuda_engine.forward_cuda_plan(plan, *args,
                                                        save_strips=True)
     res = (*args, final, strips, perturbed_cotangent(cfg, rs, args, syn))
-    before = (cuda_engine.LAUNCHES_BWD, cuda_engine.LAUNCHES_BWD_FIBER)
+    before = cuda_engine.LAUNCHES_BWD
     out = cuda_engine.backward_cuda_plan(plan, *res)
     again = cuda_engine.backward_cuda_plan(plan, *res)
     torch.cuda.synchronize()
-    steps = cfg.nt - 1
-    assert (cuda_engine.LAUNCHES_BWD, cuda_engine.LAUNCHES_BWD_FIBER) == \
-        (before[0] + 2 * cuda_engine.launches_backward(cfg, rs),
-         before[1] + 2 * steps)
+    assert cuda_engine.launches_backward(cfg, rs) == cfg.nt
+    assert cuda_engine.LAUNCHES_BWD - before == 2 * cfg.nt
     for a, b in zip(out, again):
         assert torch.equal(a, b)
     err = grad_errors(out, cuda_engine.backward_plain(cfg, rs, *res), cfg)
@@ -177,7 +177,8 @@ def test_fiber_backward_matches_plain(cuda, case):
 @pytest.mark.parametrize("case", list(AC_CASES))
 def test_acoustic_forward_matches_plain(cuda, case):
     """acoustic_forward with and without strips: data, strips and final
-    fields (2e-5), two launches a step, the same data either way."""
+    fields (2e-5), nt launches a forward (recording inside the fused step,
+    the last launch recording only), the same data either way."""
     cfg, rs, args = ac_problem(case, device=cuda)
     plan = cuda_engine.plan_for(cfg, rs)
     before = (cuda_acoustic.LAUNCHES_AC, cuda_acoustic.LAUNCHES_AC_STRIPS)
@@ -185,7 +186,7 @@ def test_acoustic_forward_matches_plain(cuda, case):
                                                    save_strips=True)
     data = cuda_acoustic.forward_cuda_acoustic_plan(plan, *args)
     torch.cuda.synchronize()
-    steps = 2 * (cfg.nt - 1)
+    steps = cfg.nt
     assert steps == cuda_acoustic.launches_forward_acoustic(cfg)
     assert (cuda_acoustic.LAUNCHES_AC, cuda_acoustic.LAUNCHES_AC_STRIPS) == \
         (before[0] + 2 * steps, before[1] + steps)
@@ -292,6 +293,28 @@ def test_forward_refuses_a_table_of_other_tiles(cuda, case, monkeypatch):
     assert cuda_engine.LAUNCHES == before
 
 
+@pytest.mark.parametrize("case", ["points by a neighbour's halo",
+                                  "ragged tiles"])
+def test_backward_and_acoustic_forward_refuse_a_table_of_other_tiles(
+        cuda, case, monkeypatch):
+    """A plan whose tables were built for tiles other than the kernels'
+    makes elastic_backward (its injection rows by tile) and
+    acoustic_forward (its recording table) raise before any launch, for
+    points and for a row."""
+    cfg, rs, args = tile_edge_problem(case, device=cuda)
+    syn, strips, final = cuda_engine.forward_cuda_plan(
+        cuda_engine.plan_for(cfg, rs), *args, save_strips=True)
+    monkeypatch.setattr(cuda_engine, "TILE", (8, 32))
+    plan = cuda_engine.FastPlan(cfg, rs)   # not the cached plan
+    before = (cuda_engine.LAUNCHES_BWD, cuda_acoustic.LAUNCHES_AC)
+    with pytest.raises(RuntimeError, match="other tiles"):
+        cuda_engine.backward_cuda_plan(plan, *args, final, strips, syn)
+    with pytest.raises(RuntimeError, match="other tiles"):
+        cuda_acoustic.forward_cuda_acoustic_plan(plan,
+                                                 *acoustic_args(args))
+    assert (cuda_engine.LAUNCHES_BWD, cuda_acoustic.LAUNCHES_AC) == before
+
+
 @pytest.mark.parametrize("case", list(TILE_EDGE_CASES))
 def test_tile_edges_backward(cuda, case):
     """The fused backward where tile edges bite: gradients within GRAD_TOL,
@@ -318,9 +341,9 @@ def test_tile_edges_backward(cuda, case):
 @pytest.mark.parametrize("case", list(AC_TILE_EDGE_CASES))
 def test_ac_tile_edges_forward_bitwise(cuda, case):
     """The fused acoustic forward where tile edges bite: data, strips and
-    final fields bitwise equal to plain, the same data without strips, two
-    launches a step, and the reconstruction residual equal to the plain f32
-    one."""
+    final fields bitwise equal to plain, the same data without strips, nt
+    launches a forward, and the reconstruction residual equal to the plain
+    f32 one."""
     cfg, rs, args = ac_tile_edge_problem(case, device=cuda)
     plan = cuda_engine.plan_for(cfg, rs)
     before = cuda_acoustic.LAUNCHES_AC
@@ -328,7 +351,7 @@ def test_ac_tile_edges_forward_bitwise(cuda, case):
                                                    save_strips=True)
     data = cuda_acoustic.forward_cuda_acoustic_plan(plan, *args)
     torch.cuda.synchronize()
-    assert cuda_acoustic.LAUNCHES_AC - before == 4 * (cfg.nt - 1)
+    assert cuda_acoustic.LAUNCHES_AC - before == 2 * cfg.nt
     ref = cuda_acoustic.forward_plain_acoustic_strips(cfg, rs, *args)
     assert all(float(ref[0][:, c].abs().max()) > 1e-3 for c in range(3))
     assert torch.equal(data, out[0])

@@ -26,23 +26,12 @@ import sep2023_tpu as st
 from sep2023_tpu_torch.config import SimConfig
 from sep2023_tpu_torch.ops import cuda_engine as ce
 from sep2023_tpu_torch.testing import (FIBER_CASES, TILE_EDGE_CASES,
-                                       fiber_problem, tile_edge_problem)
+                                       doubling_cable, fiber_problem,
+                                       tile_edge_problem)
 
 F64_TOL = 1e-12
 POINT_EDGE_CASES = [k for k, v in TILE_EDGE_CASES.items()
                     if v[-1][0] == "points"]
-
-
-def _doubling_cable():
-    """A 64x96 grid and a cable along row 30 from x=20 to 44 that turns
-    back along the same cells to x=30, then drops to row 31: its cells from
-    x=30 to 43 hold two receivers each, across the tile edge at x=32."""
-    cfg = SimConfig(nz=64, nx=96, dz=20.0, dx=20.0, nt=11, dt=0.002,
-                    f0=10.0, npml=10)
-    rec_x = np.concatenate([np.arange(20, 45), np.arange(43, 29, -1),
-                            np.arange(30, 36)])
-    rec_z = np.concatenate([np.full(25 + 14, 30), np.full(6, 31)])
-    return cfg, ce.make_fiber_survey(rec_z, rec_x)
 
 
 SURVEYS = {
@@ -50,7 +39,7 @@ SURVEYS = {
        for k in FIBER_CASES},
     **{f"tile edges: {k}": lambda k=k: tile_edge_problem(k, device="cpu")[:2]
        for k in POINT_EDGE_CASES},
-    "cable that doubles back": _doubling_cable,
+    "cable that doubles back": doubling_cable,
 }
 
 
@@ -86,7 +75,7 @@ def test_plan_uploads_the_tile_table_for_the_kernels_tiles():
                                       header).group(1))
                         for k in ("kTileZ", "kTileX"))
     assert ce.TILE == kernel_tile
-    cfg, fs = _doubling_cable()
+    cfg, fs = doubling_cable()
     plan = ce.FastPlan(cfg, fs)
     for acoustic in (False, True):
         ptr, rec, tile = plan.receivers(torch.device("cpu"), acoustic)[4]
