@@ -14,9 +14,11 @@ at examples/das_fwi_torch.py's shapes (torch.profiler).  The elastic and
 the acoustic forward are nt launches of one kernel each, recording inside
 the fused step and in a record-only launch after the last step; the
 elastic backward is nt launches, nt-1 fused reverse steps (which add point
-receivers' cotangents themselves) and the shot sum; every phase that runs
-them checks those counts.  Phase 22 times the two shot sums alone against
-their byte bound and one PyTorch call.
+receivers' cotangents themselves) and the shot sum, and so is the acoustic
+backward; every phase that runs them checks those counts.  Phase 22 times
+the two shot sums alone against their byte bound and one PyTorch call.
+Phase 23 runs the acoustic pair with the reference workload's receivers
+given as points, beside the row on the same inputs.
 The two large main paths are also held against the plain versions at their
 own shapes (nt=2001, the main path's survey), and the 54-shot chunk of the
 560x720 one, whose strip offsets pass 2^32, against the same shots run
@@ -41,6 +43,7 @@ bit against imaging.source_illumination on the card).
     python3 chip_smoke.py --phases 3,7,8,9,10,20   # those phases only
     python3 chip_smoke.py --phases 17,21           # the acoustic pair
     python3 chip_smoke.py --phases 22              # the shot sums
+    python3 chip_smoke.py --phases 23              # acoustic points
 
 Needs one CUDA device and nvcc; exits nonzero, printing no result, without
 them.  Imports neither jax nor sep2023_tpu.  The last line of standard
@@ -341,13 +344,16 @@ def phase_build():
               f"on {torch.cuda.get_device_name(0)}")
     # ptxas -v: "Function properties for <mangled name>", then "N bytes
     # stack frame, N bytes spill stores, N bytes spill loads" and "Used N
-    # registers, ..." for that kernel
+    # registers, ..." for that kernel; a kernel template's bool argument
+    # (sum_shots_kernel<true>, the float4 variant) follows its name
     name, spills, all_spills = None, "", {}
     for line in _build.build_log(path).read_text().splitlines():
-        m = re.search(r"Function properties for .*?(?<=\d)([a-z_]+_kernel)E",
-                      line)
+        m = re.search(r"Function properties for .*?(?<=\d)([a-z_]+_kernel)"
+                      r"(?:ILb([01])E)?E", line)
         if m:
             name, spills = m.group(1), ""
+            if m.group(2):
+                name += "<true>" if m.group(2) == "1" else "<false>"
         elif "spill stores" in line and name:
             spills = line.split(":", 1)[-1].strip()
         elif "Used" in line and name:
@@ -1267,6 +1273,8 @@ def _acoustic_case(tag, label, cfg, rs, args, seed=7):
     again = cuda_acoustic.backward_cuda_acoustic_plan(plan, *res)
     counts, _ = read_counts()
     n = cuda_acoustic.launches_backward_acoustic(cfg, rs)
+    check(n == cfg.nt, f"{label}: launches_backward_acoustic gives {n} for "
+          f"nt={cfg.nt}")
     check(counts_are(counts, {"LAUNCHES_AC_BWD": n}),
           f"{label}: backward launch counters {counts}")
     check(all(torch.equal(a, b) for a, b in zip(g, again)),
@@ -1392,6 +1400,93 @@ def phase_acoustic_tile_edges(dev):
         _acoustic_case(f"[21 acoustic tile edges] ({tz}x{tx} tiles, "
                        f"{tiles[0]}x{tiles[1]} a shot)", name, cfg, rs, args,
                        TILE_EDGE_SEED)
+
+
+def phase_acoustic_points(dev, reps=3):
+    """The acoustic pair with point receivers at full width: the bench's
+    acoustic gradient at the reference workload (phase 19d: lam = rho
+    2000^2, 19 shots, nt=1501) with its 181 receivers given as a
+    FiberSurvey on the row's cells.  K5-strips and K6 held against their
+    plain versions (hold_against_plain: forward bitwise, gradients, a
+    second backward bitwise, the reconstruction residual equal to plain);
+    the points record the row's data bit for bit; K6 on the points and on
+    the row, the same cotangent, timed in turns (row, points, points, row)
+    by CUDA events, and the same for the imaging variant after it is held
+    against plain; then the main paths, each with the counts set to 0 just
+    before and read just after: one gradient through
+    propagate_cuda_acoustic_plan and one rtm_image_time_cuda_plan.  The
+    main paths' launch checks come last, so that a tree whose point
+    backward launches otherwise prints every number before it fails.
+    Returns the numbers of the kernels line."""
+    tag = "[23 acoustic points]"
+    cfg, rs, args = acoustic_reference_problem(dev, vp=2000.0)
+    fs = cuda_engine.make_fiber_survey(np.full(rs.n_rec, rs.rec_row),
+                                       rs.rec_x0 + np.arange(rs.n_rec))
+    label = (f"{tag} reference workload, lam = rho 2000^2, {fs.n_rec} point "
+             "receivers on the row's cells")
+    fwd, bwd = hold_against_plain(label, cfg, fs, args, TOL_LONG,
+                                  silent_samples=0, eng=ACOUSTIC)
+    plans = {"row": cuda_engine.plan_for(cfg, rs),
+             "points": cuda_engine.plan_for(cfg, fs)}
+    res = {}
+    for name, plan in plans.items():
+        syn, strips, final = cuda_acoustic.forward_cuda_acoustic_plan(
+            plan, *args, save_strips=True)
+        res[name] = (*args, final, strips, syn)
+    check(all(torch.equal(a, b) for a, b in zip(res["row"][5:],
+                                                res["points"][5:])),
+          f"{label}: the points' data, strips or final fields differ from "
+          "the row's")
+    backward = {name: (lambda p=plan, r=res[name]:
+                       cuda_acoustic.backward_cuda_acoustic_plan(p, *r))
+                for name, plan in plans.items()}
+    turns = ("row", "points", "points", "row")
+    ms = [cuda_ms(backward[name], reps) for name in turns]
+    row_ms, pts_ms = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+    steps = cfg.nt - 1
+    print(f"{label}: backward (d_data = the data), CUDA events, means of "
+          f"{reps} in turns row / points / points / row: "
+          f"{' / '.join(f'{t:.3f}' for t in ms)} ms; points - row "
+          f"{pts_ms - row_ms:.3f} ms, {1e3 * (pts_ms - row_ms) / steps:.3f} "
+          f"us a reverse step")
+
+    final, strips, syn = res["points"][5:]
+    residual = -ac_perturbed_cotangent(cfg, fs, args, syn)
+    img = _acoustic_image_pair(label, cfg, fs, args, final, strips,
+                               residual, timed=True)
+    lam, rho, stf, sz, sx = args
+    vp = torch.sqrt(lam / rho).contiguous()
+    image = {name: (lambda p=plan, r=res[name]:
+                    cuda_acoustic.image_cuda_acoustic_plan(
+                        p, vp, rho, stf, sz, sx, r[5], r[6], residual))
+             for name, plan in plans.items()}
+    ms = [cuda_ms(image[name], reps) for name in turns]
+    print(f"{label}: imaging variant, CUDA events, means of {reps} in turns "
+          f"row / points / points / row: "
+          f"{' / '.join(f'{t:.3f}' for t in ms)} ms")
+    del res, backward, image, syn, strips, final
+
+    counts, _ = _counted_gradient(f"{tag} main path: the acoustic gradient "
+                                  f"with {fs.n_rec} point receivers", cfg,
+                                  fs, args, reps)
+    reset_counts()
+    img_out, ill = cuda_acoustic.rtm_image_time_cuda_plan(
+        plans["points"], vp, rho, stf, sz, sx, residual, sum_shots=True)
+    torch.cuda.synchronize()
+    img_counts, plain_calls = read_counts()
+    fwd_n = forward_launches(cfg, acoustic=True)
+    check_counts(f"{tag} main path: rtm_image_time_cuda_plan", img_counts, {
+        "LAUNCHES_AC": fwd_n, "LAUNCHES_AC_STRIPS": fwd_n,
+        "LAUNCHES_AC_BWD": cfg.nt, "LAUNCHES_AC_IMG": cfg.nt}, plain_calls)
+    check(bool(torch.isfinite(img_out).all() and torch.isfinite(ill).all())
+          and float(img_out.abs().max()) > 0, f"{tag} image not finite")
+    print(f"{tag} main path: rtm_image_time_cuda_plan with {fs.n_rec} point "
+          f"receivers: image {tuple(img_out.shape)} finite; launches "
+          f"{ {k: v for k, v in img_counts.items() if v} }: nt={cfg.nt} a "
+          "backward, as expected; plain calls 0")
+    torch.cuda.empty_cache()
+    return dict(forward=fwd, backward=bwd, image=img, counts=counts,
+                image_counts=img_counts)
 
 
 def _acoustic_gradient_fn(cfg, rs, args):
@@ -1884,6 +1979,24 @@ def kernel_record(results):
               "acoustic forward's shapes", ac_fwd_src, stream + "2167",
               ac["forward_large"][0]["LAUNCHES_AC"], ac["forward_large"][1]),
     ]
+    pts = r[23]
+    points = "the reference workload's 181 receivers as a FiberSurvey"
+    kernels += [
+        entry("acoustic_forward with point receivers and boundary strips "
+              "(ac_fwd_step_kernel: nt-1 fused steps recording the points by "
+              f"tile, then its record-only launch), {points}", ac_fwd_src,
+              fused + "1512", pts["counts"]["LAUNCHES_AC_STRIPS"],
+              pts["forward"]),
+        entry("acoustic_backward with point receivers (fused reverse step "
+              f"adding the points' cotangents, shot sum), {points}",
+              ac_bwd_src, fused + "1746", pts["counts"]["LAUNCHES_AC_BWD"],
+              pts["backward"]),
+        entry("acoustic_backward with point receivers, imaging variant "
+              "(fused reverse step adding the points' cotangents, with the "
+              f"image and illumination accumulators, shot sum), {points}",
+              ac_bwd_src, "sep2023_tpu/acoustic.py:224",
+              pts["image_counts"]["LAUNCHES_AC_IMG"], pts["image"]),
+    ]
     for name, shape in (("560x720 row", "560x720, nt=1001, 1 shot"),
                         ("814x2064 row", "814x2064, nt=601, 1 shot")):
         counts, (fwd, bwd) = ac[name]
@@ -1953,6 +2066,7 @@ def main(argv=None):
         (18, lambda: phase_acoustic_large(dev)),
         (19, lambda: phase_acoustic_main_paths(dev, results[18])),
         (22, lambda: phase_shot_sums(dev)),
+        (23, lambda: phase_acoustic_points(dev)),
         (6, lambda: phase_profile(dev)),
     ]
     only = {int(k) for k in args.phases.split(",") if k.strip()}

@@ -35,13 +35,13 @@
 //     tile and a 4-cell halo, what the velocity phase reads at its own cell
 //     on the tile and a 2-cell halo; then, as a second group that arrives
 //     while the velocity phase runs, what the pressure phase reads at its
-//     own cell, on the tile (44,800 bytes of static shared memory a block,
-//     kAcBwdShared; __launch_bounds__ holds the registers to 64, so four
-//     blocks run on an SM, 6% faster than three at the reference
-//     workload).  A phase reads a copied value only after the wait for its
-//     group and a __syncthreads();
+//     own cell, on the tile (46,860 bytes of static shared memory a block
+//     with the point receivers' row sums, kAcBwdShared; __launch_bounds__
+//     holds the registers to 64, so four blocks run on an SM, 6% faster
+//     than three at the reference workload).  A phase reads a copied value
+//     only after the wait for its group and a __syncthreads();
 //   velocity phase, on the tile and a 2-cell halo: the cotangents of vz/vx
-//     after step it (carried, plus D1/D2 transposed, plus a receiver row's
+//     after step it (carried, plus D1/D2 transposed, plus the receivers'
 //     cotangent), the stencils of the carried p(t+1), vz/vx rebuilt before
 //     step it (interior increment subtracted inside the tight interior,
 //     strips injected), the velocity half-step's adjoint: the two psi
@@ -88,12 +88,23 @@
 // differ within 2 cells of the tight interior's edge.
 //
 // Point receivers: as in elastic_bwd.cu, an injection table in
-// compressed-row form (one row per touched (adjoint plane, cell)), one extra
-// launch a step before the fused launch, no atomics; it adds into the
-// carried planes the fused launch reads next (the cotangent of p, and of vz
-// and vx buffer cur).  A sample reads no neighbour, so a row has one entry
-// per receiver on its cell.  So a point backward is 2 (nt-1) + 1 launches,
-// a row backward (nt-1) + 1.
+// compressed-row form (one row per touched (adjoint plane, cell); a sample
+// reads no neighbour, so a row has one entry per receiver on its cell) and
+// its rows by the tiles that add them (cuda_engine._injection_tiles with
+// the acoustic planes, built for kTileZ x kTileX tiles; acoustic_backward
+// refuses others).  The fused step adds a row's sum against the data
+// cotangent of recording index it+1 (injection_sum, entries in table
+// order) to its shared copy of the carried cotangent, carried + sum as one
+// rounded add: a vz or vx row after the first cp.async group has arrived,
+// in every tile whose velocity phase reads the row's cell (the tile and
+// its 2-cell halo, up to four tiles, each with the owner's bits), a p row
+// after the second group has arrived, in the owner's tile alone (the
+// pressure phase reads the cotangent of p on its own cells).  Each thread
+// sums its first row of the tile's runs, and finds where in shared memory
+// it lands, while the block's copies are in flight; each pass ends with a
+// __syncthreads() only in a tile with rows of its kind, a condition uniform
+// over the block.  No atomics.  So a backward is (nt-1) + 1 launches for
+// points as for a receiver row.
 //
 // What bounds it on this card: 105 FP32 operations per cell-step (102 in the
 // imaging variant; chip_smoke.py counts them) and, counting each input once
@@ -115,7 +126,6 @@ namespace {
 using namespace acoustic;
 
 constexpr int kSumThreads = 256;
-constexpr int kInjThreads = 128;
 
 constexpr int TZ = kTileZ, TX = kTileX;
 constexpr int LX = kHalo4X;  // loaded, 4-cell halo
@@ -151,12 +161,17 @@ struct Params {
   const float* strips;    // (S, nt-1, 3, strip n)
   const float* d_data;    // (S, 3, R, nt)
   // point receivers: the injection table, or inj_ptr null for a receiver row
-  const int* inj_ptr;     // (n_inj + 1,) entry range of each row
-  const int* inj_plane;   // (n_inj,) InjPlane
-  const int* inj_cell;    // (n_inj,) z * nx + x
+  const int* inj_ptr;     // (n_rows + 1,) entry range of each row
+  const int* inj_plane;   // (n_rows,) InjPlane
+  const int* inj_cell;    // (n_rows,) z * nx + x
   const int* ent_rec;     // (n_ent,) receiver
   const int* ent_ch;      // (n_ent,) channel 0..2
   const float* ent_coef;  // (n_ent,)
+  // and its rows by tile: tile t's vz/vx rows (its tile and 2-cell halo) are
+  // tile_inj[tile_ptr[2t] : tile_ptr[2t+1]], its p rows (its tile)
+  // tile_inj[tile_ptr[2t+1] : tile_ptr[2t+2]], each run in table order
+  const int* tile_ptr;    // (2 n_tiles + 1,)
+  const int* tile_inj;    // row indices
   const float* img_coef;  // (nz, nx) -2 / vp: the imaging variant; or null
   float* fields;          // (2, 3, S, nz, nx): the final fields in buffer 0
   float* work;            // (9, S, nz, nx), zeroed
@@ -165,7 +180,7 @@ struct Params {
   float* acc_sum;         // (n_acc, nz, nx)
   float* d_stf;           // (S, nt), zeroed
   int S, nz, nx, nt;
-  int rec_row, rec_x0, n_rec, n_inj, npml, n_acc;
+  int rec_row, rec_x0, n_rec, npml, n_acc;
   float dt, src_amp;      // src_amp = src_scale * dt
   StripGeom sg;
   Band bz, bx;
@@ -215,24 +230,17 @@ __device__ __forceinline__ float d_rec(const Params& p, int s, int ch, int r,
                       p.nt + it + 1];
 }
 
-// Point receivers' cotangent of recording index it + 1: one thread per
-// (shot, table row), entries summed in table order, into the carried planes
-// that the fused launch of the same step reads (the cotangent of p, and
-// buffer cur of vz's and vx's).
-__global__ void ac_inject_points_kernel(Params p, int it, int cur) {
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-  if (idx >= static_cast<size_t>(p.S) * p.n_inj) return;
-  const int s = static_cast<int>(idx / p.n_inj);
-  const int t = static_cast<int>(idx % p.n_inj);
+// The point receivers' cotangent that injection row t adds to its cell of
+// shot s at recording index it + 1 (see the note at the top): its entries
+// summed in table order.  The caller adds it to the carried cotangent,
+// carried + sum, as one rounded add.
+__device__ __forceinline__ float injection_sum(const Params& p, int s, int t,
+                                               int it) {
   float sum = 0.0f;
   for (int j = p.inj_ptr[t]; j < p.inj_ptr[t + 1]; ++j) {
     sum += p.ent_coef[j] * d_rec(p, s, p.ent_ch[j], p.ent_rec[j], it);
   }
-  const int plane = p.inj_plane[t];
-  const int k = plane == INJ_P ? W_A_P
-                : plane == INJ_VZ ? W_A_VZ + cur : W_A_VX + cur;
-  work(p, k, s)[p.inj_cell[t]] += sum;
+  return sum;
 }
 
 // Shared memory of ac_bwd_step_kernel, offsets in floats.  With the 4-cell
@@ -242,20 +250,68 @@ __global__ void ac_inject_points_kernel(Params p, int it, int cur) {
 // planes and the rebuilt vz, vx in the last two; and psi3 (z), psi4 (x) of
 // buffer cur.  On the tile, the pressure phase's inputs: the cotangent of
 // p, lam, the image coefficient (the imaging variant), psi1 (z), psi2 (x).
-// A memory off its band, like any cell off the grid, is copied in as 0 and
-// never read.
+// Last, the sum of each thread's first point-receiver row and where it
+// lands (an offset into this memory, as int), and the block's runs of rows
+// (Runs, as int).  A memory off its band, like any cell off the grid, is
+// copied in as 0 and never read.
 constexpr int S_IN = 0;                   // 3 planes, 4-cell halo
 constexpr int S_V = S_IN + 3 * kH4;       // 6 planes, 2-cell halo
 constexpr int S_PV = S_V + 6 * kH2;       // 2 planes, 2-cell halo
 constexpr int S_T = S_PV + 2 * kH2;       // 3 planes, tile
 constexpr int S_PS = S_T + 3 * kT;        // 2 planes, tile
-static_assert(S_PS + 2 * kT == kAcBwdShared,
+constexpr int S_INJ = S_PS + 2 * kT;      // a point row's sum a thread
+constexpr int S_DST = S_INJ + kTileThreads;  // and where it lands
+constexpr int S_RUNS = S_DST + kTileThreads;  // the block's runs
+static_assert(S_RUNS + 3 == kAcBwdShared,
               "kAcBwdShared counts this layout");
 enum InPlane { I_P = 0, I_D1, I_D2 };
 // the velocity phase's planes: inputs, then what it leaves there
 enum VelPlane { V_AVZ = 0, V_AVX, V_BYCA, V_BYCB, V_VZ, V_VX };
 enum VelOut { V_D3 = 0, V_D4 };
 enum TilePlane { T_AP = 0, T_LAM, T_IMG };
+
+// Where injection row t lands in the shared memory of the block whose tile
+// starts at (z0, x0): its cell in the copy of the carried cotangent of vz
+// or vx (the tile and its 2-cell halo) or of p (the tile).
+__device__ __forceinline__ int row_offset(const Params& p, int t, int z0,
+                                          int x0) {
+  const int c = p.inj_cell[t];
+  const int lz = c / p.nx - z0, lx = c % p.nx - x0;
+  switch (p.inj_plane[t]) {
+    case INJ_VZ: return S_V + V_AVZ * kH2 + (lz + 2) * VX + lx + 2;
+    case INJ_VX: return S_V + V_AVX * kH2 + (lz + 2) * VX + lx + 2;
+    default: return S_T + T_AP * kT + lz * TX + lx;
+  }
+}
+
+// This block's runs of the point receivers' rows: its vz/vx rows, then its
+// p rows, tile_inj[first .. first + n), the first n_v of them vz/vx.  Kept
+// in shared memory (S_RUNS), so that nothing of it stays in a register
+// across the velocity phase and no pass waits for device memory to learn
+// whether its tile has rows.
+struct Runs {
+  int first, n_v, n;
+};
+
+// Adds rows k0 .. k1-1 of this tile's runs (from `first` in tile_inj) to
+// the carried cotangents they land on, carried + sum: the first
+// kTileThreads rows as their threads prepared them while the copies were in
+// flight, any further row summed now, by the same function.  Each row lands
+// on its own value, so no two threads add to one.
+__device__ __forceinline__ void add_rows(const Params& p, float* sm,
+                                         int first, int k0, int k1, int z0,
+                                         int x0, int s, int it) {
+  const int* s_dst = reinterpret_cast<const int*>(sm + S_DST);
+  for (int k = k0 + threadIdx.x; k < k1; k += kTileThreads) {
+    if (k < kTileThreads) {
+      sm[s_dst[k]] = sm[s_dst[k]] + sm[S_INJ + k];
+    } else {
+      const int t = p.tile_inj[first + k];
+      float* carried = sm + row_offset(p, t, z0, x0);
+      *carried = *carried + injection_sum(p, s, t, it);
+    }
+  }
+}
 
 // Reverse step it for a tile of one shot (see the note at the top); reads
 // buffer cur, writes buffer cur ^ 1.  Every value it reads but the
@@ -324,8 +380,32 @@ ac_bwd_step_kernel(Params p, int it, int cur) {
                  bx);
   }
   cp_async_commit();
+  // each thread's first point row, summed and placed while the copies are
+  // in flight
+  Runs* s_runs = reinterpret_cast<Runs*>(sm + S_RUNS);
+  if (p.inj_ptr != nullptr) {
+    const int* ptr = p.tile_ptr + 2 * (blockIdx.y * gridDim.x + blockIdx.x);
+    const Runs r{ptr[0], ptr[1] - ptr[0], ptr[2] - ptr[0]};
+    if (threadIdx.x == 0) *s_runs = r;
+    if (threadIdx.x < r.n) {
+      const int t = p.tile_inj[r.first + threadIdx.x];
+      reinterpret_cast<int*>(sm + S_DST)[threadIdx.x] = row_offset(p, t, z0,
+                                                                   x0);
+      sm[S_INJ + threadIdx.x] = injection_sum(p, s, t, it);
+    }
+  }
   cp_async_wait_group<1>();
   __syncthreads();
+
+  // the vz/vx rows into the carried cotangents on the tile and its 2-cell
+  // halo, before the velocity phase reads them; the p rows below
+  if (p.inj_ptr != nullptr) {
+    const Runs r = *s_runs;
+    if (r.n_v > 0) {
+      add_rows(p, sm, r.first, 0, r.n_v, z0, x0, s, it);
+      __syncthreads();
+    }
+  }
 
   const float* s_p = sm + S_IN + I_P * kH4;
   const float* s_d1 = sm + S_IN + I_D1 * kH4;
@@ -346,8 +426,8 @@ ac_bwd_step_kernel(Params p, int it, int cur) {
     // stencils of step it+1 transposed
     float vz_bar = s_v[V_AVZ * kH2 + i] + tile_dz_plus_t<LX>(s_d1, v);
     float vx_bar = s_v[V_AVX * kH2 + i] + tile_dx_minus_t<LX>(s_d2, v);
-    // a receiver row's cotangent; point receivers' arrived in the carried
-    // planes (ac_inject_points_kernel)
+    // a receiver row's cotangent; point receivers' were added to the
+    // carried planes above
     const int r = x - p.rec_x0;
     if (p.inj_ptr == nullptr && z == p.rec_row && r >= 0 && r < p.n_rec) {
       vx_bar += d_rec(p, s, 1, r, it);
@@ -419,6 +499,16 @@ ac_bwd_step_kernel(Params p, int it, int cur) {
   cp_async_wait_group<0>();  // the second phase's inputs
   __syncthreads();
 
+  // point receivers' p rows of this tile, into the carried cotangent of p
+  // on the tile
+  if (p.inj_ptr != nullptr) {
+    const Runs r = *s_runs;
+    if (r.n > r.n_v) {
+      add_rows(p, sm, r.first, r.n_v, r.n, z0, x0, s, it);
+      __syncthreads();
+    }
+  }
+
   // pressure phase on the tile
   const float* s_d3 = s_v + V_D3 * kH2;
   const float* s_d4 = s_v + V_D4 * kH2;
@@ -434,8 +524,9 @@ ac_bwd_step_kernel(Params p, int it, int cur) {
     const int v = (lz + 4) * LX + lx + 4;
     const size_t c = static_cast<size_t>(z) * nx + x;
 
-    // total cotangent of p after step it: carried, plus the velocity
-    // stencils transposed, plus the recorded p on a receiver row
+    // total cotangent of p after step it: carried (with the point
+    // receivers' p), plus the velocity stencils transposed, plus the
+    // recorded p on a receiver row
     float p_bar = sm[S_T + T_AP * kT + j] + tile_dz_minus_t<VX>(s_d3, t)
                   + tile_dx_plus_t<VX>(s_d4, t);
     const int r = x - p.rec_x0;
@@ -562,10 +653,12 @@ extern "C" int acoustic_backward_plan(int* out) {
 }
 
 // Runs the nt-1 reverse steps for all shots and the shot sum on `stream`
-// ((nt-1) + 1 launches for a receiver row, 2 (nt-1) + 1 with an injection
-// table of n_inj rows for point receivers, inj_ptr null and n_inj 0
-// otherwise); returns the first CUDA error (0 on success).  Does not
-// synchronise and allocates nothing: `fields` (2, 3, S, nz, nx) holds the
+// ((nt-1) + 1 launches, for a receiver row and for point receivers alike:
+// inj_ptr null for a row, else the injection table and its rows by tile,
+// tile_ptr and tile_inj, built for tile_z x tile_x tiles; tiles other than
+// the kernel's return kErrTileMismatch before any launch); returns the
+// first CUDA error (0 on success).  Does not synchronise and allocates
+// nothing: `fields` (2, 3, S, nz, nx) holds the
 // final fields in buffer 0 and returns the fields reconstructed at t=0 in
 // buffer (nt-1) % 2; `work` (9, S, nz, nx), `psi` (the adjoint CPML
 // memories in band storage, 3 z-memory planes (S, nbz, nx) then 3 x-memory
@@ -581,37 +674,29 @@ extern "C" int acoustic_backward(const float* mats, const float* prof_z,
                                  const int* inj_ptr, const int* inj_plane,
                                  const int* inj_cell, const int* ent_rec,
                                  const int* ent_ch, const float* ent_coef,
+                                 const int* tile_ptr, const int* tile_inj,
                                  const float* img_coef, float* fields,
                                  float* work, float* psi, float* acc,
                                  float* acc_sum, float* d_stf, int S, int nz,
                                  int nx, int nt, int rec_row, int rec_x0,
-                                 int n_rec, int n_inj, int npml, int n_bnd,
-                                 int band_z_lo, int band_z_hi, int band_x_lo,
-                                 int band_x_hi, float dt, float src_amp,
-                                 void* stream) {
+                                 int n_rec, int tile_z, int tile_x, int npml,
+                                 int n_bnd, int band_z_lo, int band_z_hi,
+                                 int band_x_lo, int band_x_hi, float dt,
+                                 float src_amp, void* stream) {
+  if (tile_z != kTileZ || tile_x != kTileX) return kErrTileMismatch;
   const int n_acc = img_coef == nullptr ? 3 : 2;
   Params p{mats, prof_z, prof_x, stf, src_z, src_x, strips, d_data,
-           inj_ptr, inj_plane, inj_cell, ent_rec, ent_ch, ent_coef, img_coef,
-           fields, work, psi, acc, acc_sum, d_stf, S, nz, nx, nt, rec_row,
-           rec_x0, n_rec, n_inj, npml, n_acc, dt, src_amp,
+           inj_ptr, inj_plane, inj_cell, ent_rec, ent_ch, ent_coef, tile_ptr,
+           tile_inj, img_coef, fields, work, psi, acc, acc_sum, d_stf, S, nz,
+           nx, nt, rec_row, rec_x0, n_rec, npml, n_acc, dt, src_amp,
            strip_geom(nz, nx, npml, n_bnd), Band{band_z_lo, band_z_hi},
            Band{band_x_lo, band_x_hi}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((nx + TX - 1) / TX, (nz + TZ - 1) / TZ, S);
-  const size_t inj_threads = static_cast<size_t>(S) * n_inj;
-  const int inj_blocks =
-      static_cast<int>((inj_threads + kInjThreads - 1) / kInjThreads);
   for (int k = 0; k < nt - 1; ++k) {
     const int it = nt - 2 - k, cur = k & 1;
-    cudaError_t err;
-    if (inj_ptr != nullptr) {
-      ac_inject_points_kernel<<<inj_blocks, kInjThreads, 0, st>>>(p, it,
-                                                                  cur);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
     ac_bwd_step_kernel<<<grid, kTileThreads, 0, st>>>(p, it, cur);
-    err = cudaGetLastError();
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return launch_sum_shots(p, st);

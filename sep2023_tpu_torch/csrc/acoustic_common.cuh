@@ -45,11 +45,14 @@ __device__ __forceinline__ float ac_velocity_increment(float e, float byc,
 // phase's stencil cotangents D1, D2 with the 4-cell halo; the cotangents of
 // vz, vx, the velocities, 2 buoyancies and the velocity phase's 2 adjoint
 // memories with the 2-cell halo; the cotangent of p, lam, the image
-// coefficient and the pressure phase's 2 adjoint memories on the tile.  The
+// coefficient and the pressure phase's 2 adjoint memories on the tile; and
+// a point-receiver row's sum and where it lands, a thread, and the block's
+// runs of rows (3 ints).  The
 // accumulators are read and written in device memory by the owner of their
 // cell alone.
 constexpr int kAcFwdShared = 2 * kH4 + 4 * kH2 + 4 * kT;
-constexpr int kAcBwdShared = 3 * kH4 + 8 * kH2 + 5 * kT;
+constexpr int kAcBwdShared =
+    3 * kH4 + 8 * kH2 + 5 * kT + 2 * kTileThreads + 3;
 // Both fit the 48 KiB of static shared memory a block; four forward blocks
 // and four backward blocks fit an SM's 228 KiB (1 KiB of it reserved a
 // block), so registers, not shared memory, set how many run at once.

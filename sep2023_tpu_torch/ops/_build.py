@@ -112,7 +112,7 @@ def load() -> ctypes.CDLL:
         lib.elastic_illumination.restype = I
         lib.acoustic_forward.argtypes = [P] * 14 + [I] * 15 + [F, F, P]
         lib.acoustic_forward.restype = I
-        lib.acoustic_backward.argtypes = [P] * 21 + [I] * 14 + [F, F, P]
+        lib.acoustic_backward.argtypes = [P] * 23 + [I] * 15 + [F, F, P]
         lib.acoustic_backward.restype = I
         lib.elastic_sum_shots.argtypes = [P, P, I, I, I, P]
         lib.elastic_sum_shots.restype = I

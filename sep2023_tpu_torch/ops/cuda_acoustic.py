@@ -33,7 +33,12 @@ holds a shot.  The forward records inside its fused step, from the state
 the step reads, points through the plan's table by tile
 (`cuda_engine._tile_table`, built for `cuda_engine.TILE`; the kernel
 refuses a table of other tiles), and one record-only launch of the same
-kernel records the last sample: nt launches a forward.
+kernel records the last sample: nt launches a forward.  The backward adds
+point receivers' cotangents inside its fused reverse step, through the
+injection table's rows by tile (`cuda_engine._injection_tiles` with the
+acoustic planes, built for `cuda_engine.TILE` too), and sums the per-shot
+planes over shots in a last launch: nt launches a backward, for a row and
+for points.
 
 The wrappers take their plain versions only for tensors that lie on the
 CPU.  On CUDA tensors they launch the kernels or raise.  `LAUNCHES_AC` and
@@ -54,11 +59,10 @@ from sep2023_tpu_torch.acoustic import AcFields, AcGeom
 from sep2023_tpu_torch.config import SimConfig
 from sep2023_tpu_torch.ops import cuda_engine
 from sep2023_tpu_torch.ops.cuda_engine import (PLAIN_CALLS, FastPlan,
-                                               FiberSurvey, _check_model,
-                                               _check_tensor, _load,
-                                               _profiles, _ptr, _raise_on,
-                                               _row_args, band_floats,
-                                               cpml_bands)
+                                               _check_model, _check_tensor,
+                                               _load, _profiles, _ptr,
+                                               _raise_on, _row_args,
+                                               band_floats, cpml_bands)
 
 # Kernel launches made by forward_cuda_acoustic_plan: nt a forward (nt-1
 # fused steps, each recording the state it reads, and one record-only
@@ -69,9 +73,9 @@ LAUNCHES_AC = 0
 # image's forward).
 LAUNCHES_AC_STRIPS = 0
 # Kernel launches made by backward_cuda_acoustic_plan,
-# reconstruct_cuda_acoustic_plan and rtm_image_time_cuda_plan: 1 a step
-# (the fused reverse step) and 1 shot sum; with a FiberSurvey 2 per time
-# step (the point injection first) and 1 shot sum.
+# reconstruct_cuda_acoustic_plan and rtm_image_time_cuda_plan: nt, the nt-1
+# fused reverse steps (which add point receivers' cotangents themselves)
+# and 1 shot sum, for a receiver row and for point receivers.
 LAUNCHES_AC_BWD = 0
 # The part of LAUNCHES_AC_BWD made as the imaging variant.
 LAUNCHES_AC_IMG = 0
@@ -98,10 +102,10 @@ def launches_forward_acoustic(cfg: SimConfig) -> int:
 
 
 def launches_backward_acoustic(cfg: SimConfig, rs) -> int:
-    """Launches of one acoustic backward (or imaging) call on the card: 1 a
-    step for a receiver row, 2 for point receivers, and the shot sum."""
-    per_step = 2 if isinstance(rs, FiberSurvey) else 1
-    return per_step * (cfg.nt - 1) + 1
+    """Launches of one acoustic backward (or imaging) call on the card: nt,
+    the nt-1 fused reverse steps and the shot sum, for a receiver row and
+    for point receivers (rs, the plan's survey) alike."""
+    return cfg.nt
 
 
 def state_floats_per_shot(cfg: SimConfig) -> int:
@@ -283,7 +287,8 @@ def _backward_kernel(plan: FastPlan, lam, rho, stf, src, final, strips,
         prof_z, prof_x = _profiles(cfg, device)
         rec = plan.receivers(device, acoustic=True)
         table = (None,) * 6 if rec is None else rec[3]
-        n_inj = 0 if rec is None else table[1].shape[0]
+        tile_ptr, tile_inj, tile = (None, None, cuda_engine.TILE) \
+            if rec is None else rec[5]
         zeros = lambda *shape: torch.zeros(shape, device=device,
                                            dtype=torch.float32)
         fields = torch.empty((2, acoustic.AC_N_FIELDS, S, cfg.nz, cfg.nx),
@@ -300,10 +305,11 @@ def _backward_kernel(plan: FastPlan, lam, rho, stf, src, final, strips,
             mats.data_ptr(), prof_z.data_ptr(), prof_x.data_ptr(),
             stf.data_ptr(), *(t.data_ptr() for t in src),
             strips.data_ptr(), d_data.data_ptr(), *(_ptr(t) for t in table),
-            _ptr(img_coef), fields.data_ptr(), work.data_ptr(),
-            psi.data_ptr(), acc.data_ptr(), acc_sum.data_ptr(),
-            d_stf.data_ptr(), S, cfg.nz, cfg.nx, cfg.nt, *_row_args(rs),
-            n_inj, cfg.npml, cfg.n_bnd_layers, *cpml_bands(cfg),
+            _ptr(tile_ptr), _ptr(tile_inj), _ptr(img_coef),
+            fields.data_ptr(), work.data_ptr(), psi.data_ptr(),
+            acc.data_ptr(), acc_sum.data_ptr(), d_stf.data_ptr(), S, cfg.nz,
+            cfg.nx, cfg.nt, *_row_args(rs), *tile, cfg.npml,
+            cfg.n_bnd_layers, *cpml_bands(cfg),
             ctypes.c_float(cfg.dt), ctypes.c_float(cfg.src_scale * cfg.dt),
             stream)
     _raise_on(lib, err, "acoustic_backward")

@@ -359,23 +359,25 @@ def _tile_table(cfg: SimConfig, fs: FiberSurvey, tile):
     return i32(ptr), i32(rec)
 
 
-def _injection_tiles(cfg: SimConfig, plane, cell, tile):
+def _injection_tiles(cfg: SimConfig, plane, cell, tile, acoustic=False):
     """The rows of an injection table (`_injection_table`'s plane and
     cell) by the tiles of tile = (z, x) cells whose fused reverse step adds
     them: a vz or vx row in every tile whose 2-cell halo around it holds the
     row's cell (the velocity phase reads it there; up to four tiles), an
-    szz or sxx row in the tile that owns its cell (the stress phase reads
-    it on the tile alone).  Tiles numbered row-major as in `_tile_table`.
-    Returns int32 tile_ptr (2 n_tiles + 1) and the row indices: tile t's
-    vz/vx rows are rows[tile_ptr[2t]:tile_ptr[2t + 1]], its szz/sxx rows
-    rows[tile_ptr[2t + 1]:tile_ptr[2t + 2]], each run in table order."""
+    szz or sxx row (acoustic: a p row) in the tile that owns its cell (the
+    stress or pressure phase reads it on the tile alone).  Tiles numbered
+    row-major as in `_tile_table`.  Returns int32 tile_ptr (2 n_tiles + 1)
+    and the row indices: tile t's vz/vx rows are
+    rows[tile_ptr[2t]:tile_ptr[2t + 1]], its szz/sxx (p) rows
+    rows[tile_ptr[2t + 1]:tile_ptr[2t + 2]], each run in table order.
+    acoustic: the planes are those of the acoustic table."""
     tz, tx = tile
     n_tz, n_tx = -(-cfg.nz // tz), -(-cfg.nx // tx)
     plane = np.asarray(plane, np.int64)
     cell = np.asarray(cell, np.int64)
     z, x = cell // cfg.nx, cell % cfg.nx
-    stress = (plane == _A_SZZ) | (plane == _A_SXX)
-    halo = np.where(stress, 0, 2)
+    owner = np.isin(plane, (_AC_A_P,) if acoustic else (_A_SZZ, _A_SXX))
+    halo = np.where(owner, 0, 2)
     row = np.arange(len(plane))
     keys, rows = [], []
     for dz in (-1, 0, 1):
@@ -384,7 +386,7 @@ def _injection_tiles(cfg: SimConfig, plane, cell, tile):
             keep = ((ty >= 0) & (ty < n_tz) & (tx_ >= 0) & (tx_ < n_tx)
                     & (z >= ty * tz - halo) & (z < (ty + 1) * tz + halo)
                     & (x >= tx_ * tx - halo) & (x < (tx_ + 1) * tx + halo))
-            keys.append((2 * (ty * n_tx + tx_) + stress)[keep])
+            keys.append((2 * (ty * n_tx + tx_) + owner)[keep])
             rows.append(row[keep])
     key, row = np.concatenate(keys), np.concatenate(rows)
     order = np.lexsort((row, key))
@@ -425,8 +427,7 @@ class FastPlan:
         built for), the injection table's rows by tile (tile_ptr,
         tile_inj, the `TILE` they were built for)); None for a RowSurvey.
         acoustic: the tables of the acoustic kernels (no weights, the
-        acoustic injection table, no injection rows by tile: the acoustic
-        backward injects in a launch of its own)."""
+        acoustic injection table and its rows by tile)."""
         if not isinstance(self.rs, FiberSurvey):
             return None
         hit = self._receivers.get((device, acoustic))
@@ -438,15 +439,13 @@ class FastPlan:
                 rec_w = up(np.ascontiguousarray(rs.weights, np.float32))
             tile_ptr, tile_rec = _tile_table(self.cfg, rs, TILE)
             table = _injection_table(self.cfg, rs, acoustic)
-            inj_tiles = None
-            if not acoustic:
-                inj_ptr, inj_rows = _injection_tiles(self.cfg, table[1],
-                                                     table[2], TILE)
-                inj_tiles = (up(inj_ptr), up(inj_rows), TILE)
+            inj_ptr, inj_rows = _injection_tiles(self.cfg, table[1],
+                                                 table[2], TILE, acoustic)
             hit = (up(np.ascontiguousarray(rs.rec_z, np.int32)),
                    up(np.ascontiguousarray(rs.rec_x, np.int32)), rec_w,
                    tuple(up(a) for a in table),
-                   (up(tile_ptr), up(tile_rec), TILE), inj_tiles)
+                   (up(tile_ptr), up(tile_rec), TILE),
+                   (up(inj_ptr), up(inj_rows), TILE))
             self._receivers[(device, acoustic)] = hit
         return hit
 

@@ -113,8 +113,9 @@ def test_plain_acoustic_memories_vanish_outside_the_bands():
                                   "tile edges: grid under one tile"])
 def test_acoustic_launch_and_plane_counts(grid):
     """nt launches a forward (nt-1 fused steps, each recording the state
-    it reads, and the record-only launch of the last sample); 1 a reverse
-    step for a receiver row and 2 for point receivers, and the shot sum; 21
+    it reads, and the record-only launch of the last sample); nt a
+    backward, nt-1 fused reverse steps and the shot sum, for a receiver row
+    and for point receivers alike; 21
     planes of nz x nx a shot (final fields, the double-buffered fields, 9
     work planes, 3 gradients) and 3 band planes of CPML memory of each
     axis."""
@@ -123,7 +124,7 @@ def test_acoustic_launch_and_plane_counts(grid):
     fiber = ce.make_fiber_survey([5, 6], [7, 8])
     assert ca.launches_forward_acoustic(cfg) == 1500 + 1
     assert ca.launches_backward_acoustic(cfg, row) == 1500 + 1
-    assert ca.launches_backward_acoustic(cfg, fiber) == 2 * 1500 + 1
+    assert ca.launches_backward_acoustic(cfg, fiber) == 1500 + 1
     assert (ca.N_STATE_PLANES, ca.N_WORK_PLANES, ca.N_GRAD_PLANES,
             ca.N_BAND_PLANES) == (6, 9, 3, 3)
     n = cfg.npml

@@ -14,9 +14,13 @@ backward bitwise, the reconstruction residual equal to plain's, the image
 and illumination.  The elastic illumination kernel (the fused step with its
 accumulator) bitwise equal to imaging.source_illumination.  A point table
 built for other tiles than the kernel's raises, in the elastic forward and
-backward and in the acoustic forward.  These mirror
-phases 3, 7-10, 12, 17, 19e, 20 and 21 of chip_smoke.py; they need a CUDA
-device and nvcc, and skip without a card:
+backward and in the acoustic forward and backward.  The acoustic backward
+and its imaging variant with point receivers (the cotangents added inside
+the fused reverse step): against plain, a second run bitwise, nt launches.
+The elastic shot sum bitwise equal to a plain loop over shots, with a
+per-shot stride that is a multiple of 4 floats and one that is not.  These
+mirror phases 3, 7-10, 12, 17, 19e and 20-23 of chip_smoke.py; they need a
+CUDA device and nvcc, and skip without a card:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -25,7 +29,7 @@ import pytest
 import torch
 
 from sep2023_tpu_torch import imaging
-from sep2023_tpu_torch.ops import cuda_acoustic, cuda_engine
+from sep2023_tpu_torch.ops import _build, cuda_acoustic, cuda_engine
 from sep2023_tpu_torch.testing import (AC_CASES, AC_INTERIOR,
                                        AC_TILE_EDGE_CASES, DOT_TOL,
                                        FIBER_CASES, FWD_TOL, GRAD_TOL,
@@ -40,6 +44,17 @@ from sep2023_tpu_torch.testing import (AC_CASES, AC_INTERIOR,
                                        strip_errors, tile_edge_problem)
 
 pytestmark = pytest.mark.cuda
+
+AC_POINT_CASES = [f"points: {k}" for k in AC_CASES if k != "row"] + [
+    f"tile edges: {k}" for k, v in AC_TILE_EDGE_CASES.items()
+    if v[-1][0] == "points"]
+
+
+def _ac_point_problem(case, device):
+    kind, name = case.split(": ", 1)
+    if kind == "points":
+        return ac_problem(name, device=device)
+    return ac_tile_edge_problem(name, device=device)
 
 
 @pytest.fixture
@@ -420,3 +435,98 @@ def test_illumination_kernel_bitwise(cuda, case):
     ref = imaging.source_illumination(cfg, lam, mu, rho, stf, geoms)
     assert float(ref.max()) > 0
     assert torch.equal(ill, ref)
+
+
+@pytest.mark.parametrize("case", ["points by a neighbour's halo",
+                                  "ragged tiles"])
+def test_acoustic_backward_refuses_a_table_of_other_tiles(cuda, case,
+                                                          monkeypatch):
+    """A plan whose injection rows by tile were built for tiles other than
+    the kernel's makes acoustic_backward raise before any launch, for
+    points and for a row."""
+    cfg, rs, args = ac_tile_edge_problem(case, device=cuda)
+    syn, strips, final = cuda_acoustic.forward_cuda_acoustic_plan(
+        cuda_engine.plan_for(cfg, rs), *args, save_strips=True)
+    monkeypatch.setattr(cuda_engine, "TILE", (8, 32))
+    plan = cuda_engine.FastPlan(cfg, rs)   # not the cached plan
+    before = cuda_acoustic.LAUNCHES_AC_BWD
+    with pytest.raises(RuntimeError, match="other tiles"):
+        cuda_acoustic.backward_cuda_acoustic_plan(plan, *args, final, strips,
+                                                  syn)
+    assert cuda_acoustic.LAUNCHES_AC_BWD == before
+
+
+@pytest.mark.parametrize("case", AC_POINT_CASES)
+def test_acoustic_points_backward_and_image(cuda, case):
+    """The acoustic backward and its imaging variant with point receivers,
+    whose cotangents the fused reverse step adds itself: nt launches each
+    (LAUNCHES_AC_BWD, LAUNCHES_AC_IMG), gradients on the tight interior less
+    2 and the image and illumination within GRAD_TOL of plain, and a second
+    run of each bitwise equal."""
+    cfg, rs, args = _ac_point_problem(case, cuda)
+    plan = cuda_engine.plan_for(cfg, rs)
+    syn, strips, final = cuda_acoustic.forward_cuda_acoustic_plan(
+        plan, *args, save_strips=True)
+    cot = ac_perturbed_cotangent(cfg, rs, args, syn)
+    res = (*args, final, strips, cot)
+    before = cuda_acoustic.LAUNCHES_AC_BWD
+    out = cuda_acoustic.backward_cuda_acoustic_plan(plan, *res)
+    torch.cuda.synchronize()
+    assert cuda_acoustic.LAUNCHES_AC_BWD - before == cfg.nt
+    again = cuda_acoustic.backward_cuda_acoustic_plan(plan, *res)
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+    ref = cuda_acoustic.backward_plain_acoustic(cfg, rs, *res)
+    assert all(float(a.abs().max()) > 0 for a in ref)
+    err = grad_errors(out, ref, cfg, AC_INTERIOR)
+    assert max(err) < GRAD_TOL, err
+
+    lam, rho, stf, src_z, src_x = args
+    vp = torch.sqrt(lam / rho).contiguous()
+    image = lambda: cuda_acoustic.image_cuda_acoustic_plan(
+        plan, vp, rho, stf, src_z, src_x, final, strips, -cot)
+    before = (cuda_acoustic.LAUNCHES_AC_BWD, cuda_acoustic.LAUNCHES_AC_IMG)
+    img, ill = image()
+    torch.cuda.synchronize()
+    assert (cuda_acoustic.LAUNCHES_AC_BWD - before[0],
+            cuda_acoustic.LAUNCHES_AC_IMG - before[1]) == (cfg.nt, cfg.nt)
+    again = image()
+    assert torch.equal(again[0], img) and torch.equal(again[1], ill)
+    img_p, ill_p = cuda_acoustic.rtm_image_time_plain(
+        cfg, rs, vp, rho, stf, src_z, src_x, -cot)
+    assert float(img_p.abs().max()) > 0 and float(ill_p.max()) > 0
+    assert max_rel(img, img_p) < GRAD_TOL and max_rel(ill, ill_p) < GRAD_TOL
+
+
+# (shots, nz, nx, offset of the planes in floats): a per-shot stride of
+# 5 nz nx floats that is not a multiple of 4 (the reference workload's
+# 218,625; a tiny grid whose last tile is ragged), one that is (and the
+# same planes one float off 16-byte alignment), and the Marmousi-scale
+# chunk of 2 shots, whose grid strides over many tiles.
+SUM_CASES = {"reference workload": (19, 165, 265, 0),
+             "tiny, ragged": (5, 7, 9, 0),
+             "aligned": (2, 64, 96, 0),
+             "aligned stride, planes off 16 bytes": (3, 64, 96, 1),
+             "814x2064, 2 shots": (2, 814, 2064, 0)}
+
+
+@pytest.mark.parametrize("case", SUM_CASES)
+def test_elastic_sum_shots_bitwise(cuda, case):
+    """sum_shots_kernel (through elastic_sum_shots) bitwise equal to a
+    plain loop over shots in shot order, the float4 variant and the 4-byte
+    one alike."""
+    S, nz, nx, off = SUM_CASES[case]
+    n = 5 * nz * nx
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    buf = torch.randn(off + S * n, generator=gen, device=cuda)
+    per_shot = buf[off:].view(S, 5, nz, nx)
+    out_buf = torch.full((off + n,), float("nan"), device=cuda)
+    out = out_buf[off:].view(5, nz, nx)
+    lib = _build.load()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert lib.elastic_sum_shots(per_shot.data_ptr(), out.data_ptr(), S, nz,
+                                 nx, stream) == 0
+    ref = torch.zeros_like(out)
+    for k in range(S):
+        ref += per_shot[k]
+    assert torch.equal(out, ref)
