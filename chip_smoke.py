@@ -16,7 +16,9 @@ the fused step and in a record-only launch after the last step; the
 elastic backward is nt launches, nt-1 fused reverse steps (which add point
 receivers' cotangents themselves) and the shot sum, and so is the acoustic
 backward; every phase that runs them checks those counts.  Phase 22 times
-the two shot sums alone against their byte bound and one PyTorch call.
+the shot sums alone (one body, csrc/shot_sum.cuh: the elastic and the
+acoustic gradients' and the rtm image's) against their byte bound, one
+PyTorch call and an empty launch; phase 6 shows them inside backwards.
 Phase 23 runs the acoustic pair with the reference workload's receivers
 given as points, beside the row on the same inputs.
 The two large main paths are also held against the plain versions at their
@@ -344,16 +346,20 @@ def phase_build():
               f"on {torch.cuda.get_device_name(0)}")
     # ptxas -v: "Function properties for <mangled name>", then "N bytes
     # stack frame, N bytes spill stores, N bytes spill loads" and "Used N
-    # registers, ..." for that kernel; a kernel template's bool argument
-    # (sum_shots_kernel<true>, the float4 variant) follows its name
+    # registers, ..." for that kernel; a kernel template's bool and int
+    # arguments follow its name (ac_sum_shots_kernel<false, 20>: the 4-byte
+    # variant, 20 shots' loads issued before any add)
     name, spills, all_spills = None, "", {}
     for line in _build.build_log(path).read_text().splitlines():
         m = re.search(r"Function properties for .*?(?<=\d)([a-z_]+_kernel)"
-                      r"(?:ILb([01])E)?E", line)
+                      r"(I(?:L[ib]\d+E)+E)?E", line)
         if m:
             name, spills = m.group(1), ""
             if m.group(2):
-                name += "<true>" if m.group(2) == "1" else "<false>"
+                name += "<" + ", ".join(
+                    v if t == "i" else ("true" if v == "1" else "false")
+                    for t, v in re.findall(r"L([ib])(\d+)E", m.group(2))
+                ) + ">"
         elif "spill stores" in line and name:
             spills = line.split(":", 1)[-1].strip()
         elif "Used" in line and name:
@@ -1707,11 +1713,11 @@ def phase_acoustic_main_paths(dev, streamed):
 
 
 def _profile(label, fn):
-    """Device-time breakdown of fn() under torch.profiler: time per kernel,
-    the device window from the first device event to the last, and its
-    idle share; and the last launch of fwd_step_kernel and of
-    ac_fwd_step_kernel apart from their others (a forward's record-only
-    launch)."""
+    """Device-time breakdown of fn() under torch.profiler: time per kernel
+    (the shot sums always in rows of their own, however small), the device
+    window from the first device event to the last, and its idle share; and
+    the last launch of fwd_step_kernel and of ac_fwd_step_kernel apart from
+    their others (a forward's record-only launch)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1741,7 +1747,7 @@ def _profile(label, fn):
     window = reach - spans[0][0]
     rest = [0, 0, 0.0]      # kernels under 0.1% of busy: names, launches, us
     for name, (n, us) in sorted(per_name.items(), key=lambda kv: -kv[1][1]):
-        if us < 1e-3 * busy:
+        if us < 1e-3 * busy and "sum_shots_kernel" not in name:
             rest = [rest[0] + 1, rest[1] + n, rest[2] + us]
             continue
         print(f"[6 profile] {label}: {name[:60]}: {n} launches, "
@@ -1782,7 +1788,10 @@ def phase_profile(dev):
     """One reference forward_cuda call, one reference gradient evaluation,
     one reference acoustic gradient evaluation, one one-shot gradient
     evaluation on each large grid, and one gradient evaluation at
-    examples/das_fwi_torch.py's shapes (point receivers)."""
+    examples/das_fwi_torch.py's shapes (point receivers); then the backwards
+    whose shot sums phase 22 times alone at its other shapes (a 2-shot
+    gradient at 814x2064, a reference rtm image, a one-shot acoustic
+    gradient at 814x2064), for the sums' device time inside them."""
     cfg, rs, inputs = reference_problem(dev)
     plan = cuda_engine.plan_for(cfg, rs)
     _profile("one reference forward_cuda_plan",
@@ -1802,17 +1811,41 @@ def phase_profile(dev):
              "nt=500, 6 shots, 63 weighted points)",
              _gradient_fn(*das_fwi_problem(dev)))
 
+    cfg, rs, (lam, mu, rho, stf, sz, sx, _) = large_problem(
+        *LARGE_CASES["814x2064 row"], dev)
+    two = (lam, mu, rho, stf.expand(2, cfg.nt).contiguous(), np.repeat(sz, 2),
+           np.array([cfg.nx // 3, 2 * cfg.nx // 3]), np.ones(2))
+    _profile(f"one gradient evaluation, 814x2064 row, nt={cfg.nt}, 2 shots",
+             _gradient_fn(cfg, rs, two))
+    del two
+    torch.cuda.empty_cache()
+    cfg, rs, args = acoustic_reference_problem(dev)
+    plan = cuda_engine.plan_for(cfg, rs)
+    lam, rho, stf, sz, sx = args
+    vp = torch.sqrt(lam / rho).contiguous()
+    residual = cuda_acoustic.forward_cuda_acoustic_plan(plan, *args)
+    _profile("one rtm image (rtm_image_time_cuda_plan, reference workload, "
+             "19 shots, summed)",
+             lambda: cuda_acoustic.rtm_image_time_cuda_plan(
+                 plan, vp, rho, stf, sz, sx, residual, sum_shots=True))
+    del residual
+    _profile("one acoustic gradient evaluation, 814x2064 row, nt=601, 1 shot",
+             _acoustic_gradient_fn(*ac_large_problem("814x2064 row", dev)))
+    torch.cuda.empty_cache()
+
 
 # The shot sums timed alone (phase 22): (kernel, per-shot planes, shots,
 # grid) at the reference workload and at 814x2064 with the shots a main
 # path has in flight there (the Marmousi-scale chunk of 2; the acoustic
-# gradient of phase 19f, 1 shot).
+# gradient of phase 19f, 1 shot), and the sum of `rtm`'s image and
+# illumination (the imaging variant, 2 planes a shot).
 SHOT_SUM_CASES = {
     "sum_shots_kernel, reference workload": ("elastic", 5, 19, (165, 265)),
     "sum_shots_kernel, 814x2064": ("elastic", 5, 2, (814, 2064)),
     "ac_sum_shots_kernel, reference workload": ("acoustic", 3, 19,
                                                 (165, 265)),
     "ac_sum_shots_kernel, 814x2064": ("acoustic", 3, 1, (814, 2064)),
+    "ac_sum_shots_kernel, rtm image": ("acoustic", 2, 19, (165, 265)),
 }
 
 
@@ -1824,8 +1857,12 @@ def phase_shot_sums(dev, reps=100):
     L2 (50 MB) flushed before each call, as (flush + call) - flush over
     `reps` calls, beside its byte bound (the per-shot planes read once, the
     sum written once) and one PyTorch call, per_shot.sum(0) (time only: it
-    sums in another order); and without the flush (L2-warm).  Returns the
-    numbers of the kernels line by case."""
+    sums in another order); and without the flush (L2-warm).  Last, the
+    floor of any launch, timed the same way: an empty kernel of one block
+    and of the blocks the reference acoustic sum launches (so the script
+    run in an older tree, whose library has no empty kernel, prints every
+    case's numbers before it stops there).  Returns the numbers of the
+    kernels line by case."""
     lib = _build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     gen = torch.Generator(device=dev).manual_seed(22)
@@ -1880,6 +1917,15 @@ def phase_shot_sums(dev, reps=100):
                              bound_ms=b_ms, bound_by=b_by,
                              library_ms=library_ms)
         del per_shot, out, ref
+    planes, _, (nz, nx) = SHOT_SUM_CASES[
+        "ac_sum_shots_kernel, reference workload"][1:]
+    for blocks in (1, -(-planes * nz * nx // 1024)):  # 4 outputs a thread
+        empty = lambda: lib.empty_launch(blocks, stream)
+        check(empty() == 0, "empty launch failed")
+        print(f"[22 shot sums] the floor: an empty kernel of {blocks} "
+              f"block(s) of 256 threads, CUDA events, L2 flushed "
+              f"{cold_ms(empty):.4f} ms, L2-warm {cuda_ms(empty, reps):.4f} "
+              f"ms (means of {reps}; the same launch path, through ctypes)")
     del flush
     torch.cuda.empty_cache()
     return numbers
@@ -2018,7 +2064,10 @@ def kernel_record(results):
             ("ac_sum_shots_kernel, reference workload", ac_bwd_src,
              fused + "1746", ac["gradient"][0]["LAUNCHES_AC_BWD"], 1501),
             ("ac_sum_shots_kernel, 814x2064", ac_bwd_src, stream + "2493",
-             ac["814x2064 row"][0]["LAUNCHES_AC_BWD"], 601)):
+             ac["814x2064 row"][0]["LAUNCHES_AC_BWD"], 601),
+            ("ac_sum_shots_kernel, rtm image", ac_bwd_src,
+             "sep2023_tpu/acoustic.py:224", ac["rtm"]["LAUNCHES_AC_IMG"],
+             1501)):
         kind, planes, S, _ = SHOT_SUM_CASES[name]
         kernels.append(entry(
             f"{name}, {S} shot(s) x {planes} planes: the backward's shot "

@@ -60,8 +60,9 @@
 // same code (a receiver row's cotangent included), and thrown away; only
 // the owner of a cell writes it, and only the owner reads and writes its
 // accumulators and d_stf.  After the loop one launch sums the per-shot
-// accumulator planes over shots in a fixed order.  Nothing is accumulated
-// with atomics, so a second backward gives the same bits.
+// accumulator planes over shots in a fixed order (ac_sum_shots_kernel, on
+// the body it shares with elastic_bwd.cu in shot_sum.cuh).  Nothing is
+// accumulated with atomics, so a second backward gives the same bits.
 //
 // Double buffers.  In one launch a block reads at its neighbours' cells the
 // fields, the cotangents of vz/vx, D1, D2 and (in the halo's velocity
@@ -120,12 +121,11 @@
 // and rounding as the forward kernel.
 
 #include "acoustic_common.cuh"
+#include "shot_sum.cuh"
 
 namespace {
 
 using namespace acoustic;
-
-constexpr int kSumThreads = 256;
 
 constexpr int TZ = kTileZ, TX = kTileX;
 constexpr int LX = kHalo4X;  // loaded, 4-cell halo
@@ -177,7 +177,6 @@ struct Params {
   float* work;            // (9, S, nz, nx), zeroed
   float* psi;             // adjoint CPML memories, band storage, zeroed
   float* acc;             // (S, n_acc, nz, nx), zeroed
-  float* acc_sum;         // (n_acc, nz, nx)
   float* d_stf;           // (S, nt), zeroed
   int S, nz, nx, nt;
   int rec_row, rec_x0, n_rec, npml, n_acc;
@@ -606,23 +605,46 @@ ac_bwd_step_kernel(Params p, int it, int cur) {
   }
 }
 
-// acc_sum[k, c] = sum over s = 0 .. S-1, in that order, of acc[s, k, c].
-__global__ void ac_sum_shots_kernel(Params p) {
-  const size_t n = p.n_acc * static_cast<size_t>(p.nz) * p.nx;
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-  if (idx >= n) return;
-  float sum = 0.0f;
-  for (int s = 0; s < p.S; ++s) sum += p.acc[s * n + idx];
-  p.acc_sum[idx] = sum;
+// acc_sum (n) = the sum over s = 0 .. S-1, in that order, of acc + s * n,
+// n = n_acc nz nx: the shared body of shot_sum.cuh with 4 outputs a thread
+// (a float4 where n is a multiple of 4 and both planes are 16-byte aligned;
+// at the reference workload n = 131,175 or 87,450, so 4 outputs 256 apart)
+// and the loads of kGroup shots issued before any add.  Measured on an H100
+// (PERF.md, PR 11): at 19 shots of 165 x 265, 4 outputs a thread beat 1 and
+// 2, and 20 shots a group beat 8 and 4, cold and inside a backward; 20
+// shots a group take 126 registers, too many where one or two shots of a
+// large grid leave the resident grid striding over many tiles, so few shots
+// take kFewShots.
+constexpr int kFewShots = 8, kManyShots = 20;
+
+template <bool kVec, int kGroup>
+__global__ void __launch_bounds__(shot_sum::kThreads)
+ac_sum_shots_kernel(const float* __restrict__ acc,
+                    float* __restrict__ acc_sum, size_t n, int S) {
+  shot_sum::sum_shots<kVec, kGroup>(acc, acc_sum, n, S);
 }
 
-int launch_sum_shots(const Params& p, cudaStream_t st) {
-  const size_t n = p.n_acc * static_cast<size_t>(p.nz) * p.nx;
-  const int blocks = static_cast<int>((n + kSumThreads - 1) / kSumThreads);
-  ac_sum_shots_kernel<<<blocks, kSumThreads, 0, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
+// Launches ac_sum_shots_kernel over acc (S, n) into acc_sum (n); returns
+// the CUDA error (0 on success).
+int launch_sum_shots(const float* acc, float* acc_sum, int S, size_t n,
+                     cudaStream_t st) {
+  static int grid[4] = {0, 0, 0, 0};
+  const bool vec = shot_sum::aligned(acc, acc_sum, n);
+  if (S <= kFewShots) {
+    return vec ? shot_sum::launch(ac_sum_shots_kernel<true, kFewShots>,
+                                  &grid[0], n, st, acc, acc_sum, n, S)
+               : shot_sum::launch(ac_sum_shots_kernel<false, kFewShots>,
+                                  &grid[1], n, st, acc, acc_sum, n, S);
+  }
+  return vec ? shot_sum::launch(ac_sum_shots_kernel<true, kManyShots>,
+                                &grid[2], n, st, acc, acc_sum, n, S)
+             : shot_sum::launch(ac_sum_shots_kernel<false, kManyShots>,
+                                &grid[3], n, st, acc, acc_sum, n, S);
 }
+
+// An empty kernel, launched as the shot sum is (shot_sum::kThreads threads
+// a block): what a launch of that grid costs with no work in it.
+__global__ void empty_kernel() {}
 
 }  // namespace
 
@@ -632,14 +654,18 @@ int launch_sum_shots(const Params& p, cudaStream_t st) {
 // against one PyTorch call; returns the CUDA error (0 on success).
 extern "C" int acoustic_sum_shots(float* acc, float* acc_sum, int S,
                                   int n_acc, int nz, int nx, void* stream) {
-  Params p{};
-  p.acc = acc;
-  p.acc_sum = acc_sum;
-  p.S = S;
-  p.n_acc = n_acc;
-  p.nz = nz;
-  p.nx = nx;
-  return launch_sum_shots(p, static_cast<cudaStream_t>(stream));
+  return launch_sum_shots(acc, acc_sum, S,
+                          n_acc * static_cast<size_t>(nz) * nx,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// One launch of empty_kernel over `blocks` blocks on `stream`: the floor
+// that chip_smoke.py prints beside the shot sums' times.  Returns the CUDA
+// error (0 on success).
+extern "C" int empty_launch(int blocks, void* stream) {
+  empty_kernel<<<blocks, shot_sum::kThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The fused backward's plan, as chip_smoke.py reports it: its static shared
@@ -687,7 +713,7 @@ extern "C" int acoustic_backward(const float* mats, const float* prof_z,
   const int n_acc = img_coef == nullptr ? 3 : 2;
   Params p{mats, prof_z, prof_x, stf, src_z, src_x, strips, d_data,
            inj_ptr, inj_plane, inj_cell, ent_rec, ent_ch, ent_coef, tile_ptr,
-           tile_inj, img_coef, fields, work, psi, acc, acc_sum, d_stf, S, nz,
+           tile_inj, img_coef, fields, work, psi, acc, d_stf, S, nz,
            nx, nt, rec_row, rec_x0, n_rec, npml, n_acc, dt, src_amp,
            strip_geom(nz, nx, npml, n_bnd), Band{band_z_lo, band_z_hi},
            Band{band_x_lo, band_x_hi}};
@@ -699,5 +725,6 @@ extern "C" int acoustic_backward(const float* mats, const float* prof_z,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return launch_sum_shots(p, st);
+  return launch_sum_shots(acc, acc_sum, S,
+                          n_acc * static_cast<size_t>(nz) * nx, st);
 }

@@ -56,8 +56,9 @@
 // recomputed by every block that needs it, from the same inputs with the
 // same code, and thrown away; only the owner of a cell writes it.  After the
 // loop one launch sums the per-shot gradient planes over shots in a fixed
-// order.  Nothing is accumulated with atomics, so a second backward gives
-// the same bits.
+// order (sum_shots_kernel, on the body it shares with acoustic_bwd.cu in
+// shot_sum.cuh).  Nothing is accumulated with atomics, so a second
+// backward gives the same bits.
 //
 // Double buffers.  In one launch a block reads at its neighbours' cells the
 // fields, the cotangents of vz/vx, D1..D4 and (in the halo's velocity phase)
@@ -118,15 +119,12 @@
 // Reconstruction uses the increments of elastic_common.cuh, the same code
 // and rounding as the forward kernel.
 
-#include <cstdint>
-
 #include "elastic_common.cuh"
+#include "shot_sum.cuh"
 
 namespace {
 
 using namespace elastic;
-
-constexpr int kSumThreads = 256;
 
 constexpr int TZ = kTileZ, TX = kTileX;
 constexpr int LZ = kHalo4Z, LX = kHalo4X;  // loaded, 4-cell halo
@@ -692,75 +690,15 @@ bwd_step_kernel(Params p, int it, int cur) {
 }
 
 // gmat[c] = sum over s = 0 .. S-1, in that order, of gshot[s * n + c],
-// with n = 5 nz nx: each output is 0.0f + g[0] + g[1] + ..., the bits of
-// a plain loop over shots.  The sum is bound by bytes (every per-shot
-// plane read once, the sum written once), so the kernel keeps many loads
-// in flight: a thread owns 4 outputs of a tile of 4 kSumThreads, and
-// starts the loads of kSumShots shots before it adds any of them; the
-// per-shot planes are read evict-first (__ldcs), since they are dead after
-// the sum; the grid is the blocks of it an SM holds at once on every SM,
-// striding over the tiles.  kVec: a thread's 4 outputs are consecutive
-// and read and written as one float4, which needs n a multiple of 4 and
-// both planes 16-byte aligned (not so at the reference workload, n =
-// 218,625); otherwise they lie kSumThreads apart, so that a warp's 4-byte
-// accesses stay coalesced.
-constexpr int kSumShots = 4;
-
+// with n = 5 nz nx: the shared body of shot_sum.cuh with 4 outputs a thread
+// and the loads of 4 shots issued before any add.  The float4 variant
+// (<true>) needs n a multiple of 4 and both planes 16-byte aligned (not so
+// at the reference workload, n = 218,625).
 template <bool kVec>
-__device__ __forceinline__ float4 load4(const float* __restrict__ a,
-                                        size_t c, size_t n) {
-  if (kVec) return __ldcs(reinterpret_cast<const float4*>(a + c));
-  float4 v;
-  v.x = __ldcs(a + c);
-  v.y = c + kSumThreads < n ? __ldcs(a + c + kSumThreads) : 0.0f;
-  v.z = c + 2 * kSumThreads < n ? __ldcs(a + c + 2 * kSumThreads) : 0.0f;
-  v.w = c + 3 * kSumThreads < n ? __ldcs(a + c + 3 * kSumThreads) : 0.0f;
-  return v;
-}
-
-template <bool kVec>
-__device__ __forceinline__ void store4(float* __restrict__ a, size_t c,
-                                       size_t n, float4 v) {
-  if (kVec) {
-    *reinterpret_cast<float4*>(a + c) = v;
-    return;
-  }
-  a[c] = v.x;
-  if (c + kSumThreads < n) a[c + kSumThreads] = v.y;
-  if (c + 2 * kSumThreads < n) a[c + 2 * kSumThreads] = v.z;
-  if (c + 3 * kSumThreads < n) a[c + 3 * kSumThreads] = v.w;
-}
-
-template <bool kVec>
-__global__ void __launch_bounds__(kSumThreads)
+__global__ void __launch_bounds__(shot_sum::kThreads)
 sum_shots_kernel(const float* __restrict__ gshot, float* __restrict__ gmat,
                  size_t n, int S) {
-  const size_t tile = 4 * kSumThreads;
-  for (size_t base = blockIdx.x * tile; base < n; base += gridDim.x * tile) {
-    // this thread's first output; the tile's last may be ragged
-    const size_t c = base + (kVec ? 4 * threadIdx.x : threadIdx.x);
-    if (c >= n) continue;
-    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    for (int s0 = 0; s0 < S; s0 += kSumShots) {
-      float4 v[kSumShots];
-#pragma unroll
-      for (int g = 0; g < kSumShots; ++g) {
-        if (s0 + g < S) {
-          v[g] = load4<kVec>(gshot + static_cast<size_t>(s0 + g) * n, c, n);
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < kSumShots; ++g) {
-        if (s0 + g < S) {
-          acc.x += v[g].x;
-          acc.y += v[g].y;
-          acc.z += v[g].z;
-          acc.w += v[g].w;
-        }
-      }
-    }
-    store4<kVec>(gmat, c, n, acc);
-  }
+  shot_sum::sum_shots<kVec, 4>(gshot, gmat, n, S);
 }
 
 // Launches sum_shots_kernel over gshot (S, 5, nz, nx) into gmat (5, nz,
@@ -769,36 +707,13 @@ sum_shots_kernel(const float* __restrict__ gshot, float* __restrict__ gmat,
 int launch_sum_shots(const float* gshot, float* gmat, int S, int nz, int nx,
                      cudaStream_t st) {
   const size_t n = kNumFields * static_cast<size_t>(nz) * nx;
-  const bool vec = n % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(gshot) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(gmat) % 16 == 0;
-  // the blocks an SM holds at once, on every SM of the device, once a
-  // process (a grid of another size gives the same bits)
   static int grid[2] = {0, 0};
-  if (grid[vec] == 0) {
-    int dev, sms, per_sm;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, vec ? sum_shots_kernel<true> : sum_shots_kernel<false>,
-          kSumThreads, 0);
-    }
-    if (err != cudaSuccess) return static_cast<int>(err);
-    grid[vec] = sms * per_sm;
+  if (shot_sum::aligned(gshot, gmat, n)) {
+    return shot_sum::launch(sum_shots_kernel<true>, &grid[1], n, st, gshot,
+                            gmat, n, S);
   }
-  const size_t tiles = (n + 4 * kSumThreads - 1) / (4 * kSumThreads);
-  const int blocks = static_cast<int>(
-      tiles < static_cast<size_t>(grid[vec]) ? tiles : grid[vec]);
-  if (vec) {
-    sum_shots_kernel<true><<<blocks, kSumThreads, 0, st>>>(gshot, gmat, n, S);
-  } else {
-    sum_shots_kernel<false><<<blocks, kSumThreads, 0, st>>>(gshot, gmat, n,
-                                                            S);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return shot_sum::launch(sum_shots_kernel<false>, &grid[0], n, st, gshot,
+                          gmat, n, S);
 }
 
 }  // namespace

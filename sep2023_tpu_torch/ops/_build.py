@@ -118,6 +118,8 @@ def load() -> ctypes.CDLL:
         lib.elastic_sum_shots.restype = I
         lib.acoustic_sum_shots.argtypes = [P, P, I, I, I, I, P]
         lib.acoustic_sum_shots.restype = I
+        lib.empty_launch.argtypes = [I, P]
+        lib.empty_launch.restype = I
         for name in ("elastic_forward_plan", "elastic_backward_plan",
                      "acoustic_forward_plan", "acoustic_backward_plan"):
             getattr(lib, name).argtypes = [P]

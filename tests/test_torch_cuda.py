@@ -17,12 +17,14 @@ built for other tiles than the kernel's raises, in the elastic forward and
 backward and in the acoustic forward and backward.  The acoustic backward
 and its imaging variant with point receivers (the cotangents added inside
 the fused reverse step): against plain, a second run bitwise, nt launches.
-The elastic shot sum bitwise equal to a plain loop over shots, with a
-per-shot stride that is a multiple of 4 floats and one that is not.  These
-mirror phases 3, 7-10, 12, 17, 19e and 20-23 of chip_smoke.py; they need a
-CUDA device and nvcc, and skip without a card:
+The elastic and the acoustic shot sums (one body, csrc/shot_sum.cuh)
+bitwise equal to a plain loop over shots, with a per-shot stride that is a
+multiple of 4 floats and one that is not, and planes off 16-byte alignment.
+These mirror phases 3, 7-10, 12, 17, 19e and 20-23 of chip_smoke.py; they
+need a CUDA device and nvcc, and skip without a card:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
+    python -m pytest --noconftest tests/test_torch_cuda.py -k sum_shots
 """
 import numpy as np
 import pytest
@@ -530,3 +532,45 @@ def test_elastic_sum_shots_bitwise(cuda, case):
     for k in range(S):
         ref += per_shot[k]
     assert torch.equal(out, ref)
+
+
+# (shots, planes a shot, nz, nx, offset of the planes in floats): the
+# reference workload's gradient (19 x 3 planes) and rtm image (19 x 2),
+# whose per-shot strides are not multiples of 4 floats; a tiny grid with a
+# ragged last tile; more shots than a thread loads before it adds; the
+# one-shot gradient at 814x2064 and a 12-shot sum whose strides are (the
+# float4 variant, few shots and many), each also with the planes one float
+# off 16-byte alignment.
+AC_SUM_CASES = {"reference workload": (19, 3, 165, 265, 0),
+                "rtm image": (19, 2, 165, 265, 0),
+                "reference, planes off 16 bytes": (19, 3, 165, 265, 1),
+                "tiny, ragged": (5, 3, 7, 9, 0),
+                "40 shots": (40, 2, 30, 50, 0),
+                "814x2064, 1 shot": (1, 3, 814, 2064, 0),
+                "814x2064, planes off 16 bytes": (1, 3, 814, 2064, 1),
+                "12 shots of 300x400": (12, 3, 300, 400, 0),
+                "12 shots of 300x400, planes off 16 bytes":
+                    (12, 3, 300, 400, 1)}
+
+
+@pytest.mark.parametrize("case", AC_SUM_CASES)
+def test_acoustic_sum_shots_bitwise(cuda, case):
+    """ac_sum_shots_kernel (through acoustic_sum_shots) bitwise equal to a
+    plain loop over shots in shot order, for few shots and many, the float4
+    variant and the 4-byte one alike; nothing past the sum is written."""
+    S, planes, nz, nx, off = AC_SUM_CASES[case]
+    n = planes * nz * nx
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    buf = torch.randn(off + S * n, generator=gen, device=cuda)
+    per_shot = buf[off:].view(S, planes, nz, nx)
+    out_buf = torch.full((off + n + 4,), float("nan"), device=cuda)
+    out = out_buf[off:off + n].view(planes, nz, nx)
+    lib = _build.load()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert lib.acoustic_sum_shots(per_shot.data_ptr(), out.data_ptr(), S,
+                                  planes, nz, nx, stream) == 0
+    ref = torch.zeros_like(out)
+    for k in range(S):
+        ref += per_shot[k]
+    assert torch.equal(out, ref)
+    assert bool(out_buf[off + n:].isnan().all())

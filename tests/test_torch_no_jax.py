@@ -321,12 +321,28 @@ def test_backward_kernel_has_no_atomics():
                    .iterdir())
     assert names == ["acoustic_bwd.cu", "acoustic_common.cuh",
                      "acoustic_fwd.cu", "elastic_bwd.cu",
-                     "elastic_common.cuh", "elastic_fwd.cu"]
+                     "elastic_common.cuh", "elastic_fwd.cu", "shot_sum.cuh"]
     for name in names:
         src = (REPO / "sep2023_tpu_torch" / "csrc" / name).read_text()
         code = re.sub(r"//[^\n]*", "", src)
         assert "__global__" in code or name.endswith(".cuh")
         assert not re.search(r"atomic", code, re.IGNORECASE), name
+
+
+def test_shot_sums_share_one_body():
+    """Both backwards' shot sums are entries of their own that run the one
+    body of shot_sum.cuh (comments aside): sum_shots_kernel in
+    elastic_bwd.cu, ac_sum_shots_kernel in acoustic_bwd.cu."""
+    csrc = REPO / "sep2023_tpu_torch" / "csrc"
+    for name, entry in (("elastic_bwd.cu", "sum_shots_kernel"),
+                        ("acoustic_bwd.cu", "ac_sum_shots_kernel")):
+        code = re.sub(r"//[^\n]*", "", (csrc / name).read_text())
+        assert '#include "shot_sum.cuh"' in code, name
+        body = re.search(r"__global__[^{]*\b" + entry + r"\([^{]*\{([^}]*)\}",
+                         code)
+        assert body and "shot_sum::sum_shots<" in body.group(1), name
+    header = re.sub(r"//[^\n]*", "", (csrc / "shot_sum.cuh").read_text())
+    assert "__global__" not in header
 
 
 @pytest.mark.parametrize("nz,nx", [(560, 720), (814, 2064)])
