@@ -41,11 +41,21 @@ two streamed shapes, and `rtm --physics elastic`, whose illumination runs
 the fused elastic step with its illumination accumulator (held bit for
 bit against imaging.source_illumination on the card).
 
+The rest of `invert` on the same kernels, each run with exact launch
+counts and no plain call: the reference's rock-physics scripts at their
+265x385, nt=4001, 31-shot scale (phase 24: Main-004's --head rock_gassmann
+with a falling loss.txt, its VRH variant and Main-005's --model rock), and
+the conditioned misfits at the reference workload beside the plain L2
+(phase 25: two --bands stages with --win, --src-update, --misfit xcorr and
+--energy-weights; --invert-stf; --generate_data, then --para-json off the
+files it wrote and --resume).
+
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 3,7,8,9,10,20   # those phases only
     python3 chip_smoke.py --phases 17,21           # the acoustic pair
     python3 chip_smoke.py --phases 22              # the shot sums
     python3 chip_smoke.py --phases 23              # acoustic points
+    python3 chip_smoke.py --phases 24,25           # rock scale, conditioned
 
 Needs one CUDA device and nvcc; exits nonzero, printing no result, without
 them.  Imports neither jax nor sep2023_tpu.  The last line of standard
@@ -613,37 +623,46 @@ def phase_reconstruction(dev):
           f"{plain:.6e} (kernel <= {RECON_RATIO:g} x plain)")
 
 
-def _invert(label, argv, cfg, rs, S, niter):
+def _invert(label, argv, cfg, rs, S, niter, *, exp=None, data_forwards=1,
+            decreasing=True):
     """`invert` through cli.main with the counts set to 0 just before and
-    read just after: the loss decreases, the launch counts are exact, no
-    plain version ran.  cfg, rs, S: the run's grid, survey and shots.
-    Returns
-    (counts, summary, evaluations, chunks)."""
+    read just after: the launch counts are exact, no plain version ran, the
+    losses are finite and (decreasing=True, one stage) loss.txt decreases.
+    cfg, rs, S: the run's grid, survey and shots; exp: its --exp-name (a
+    new temporary directory when None); data_forwards: the forwards of the
+    observed data (1 for a twin experiment, 0 when they are read).
+    Returns (counts, summary, evaluations, chunks)."""
     with tempfile.TemporaryDirectory() as d:
+        exp = exp or d
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         out = cli.main(["invert", *argv, "--niter", str(niter),
-                        "--exp-name", d])
+                        "--exp-name", exp])
         counts, plain_calls = read_counts()
-        hist = np.loadtxt(os.path.join(d, "Results", "loss.txt"), ndmin=2)
+        hist = np.loadtxt(os.path.join(exp, "Results", "loss.txt"), ndmin=2)
     n = out["n_evals"]
     chunks = len(parallel._chunks(S, out["shot_chunk"]))
     fwd = forward_launches(cfg)
     bwd = backward_launches(cfg, rs)
-    # the twin data: one forward a chunk; an evaluation: a forward with
-    # strips and a backward a chunk
-    want = {"LAUNCHES": fwd * chunks * (1 + n),
+    # the twin data and each --src-update: one forward a chunk; an
+    # evaluation: a forward with strips and a backward a chunk
+    forwards = data_forwards + out["src_updates"]
+    want = {"LAUNCHES": fwd * chunks * (forwards + n),
             "LAUNCHES_STRIPS": fwd * chunks * n,
             "LAUNCHES_BWD": bwd * chunks * n}
     check_counts(label, counts, want, plain_calls)
-    loss = hist[:, 1]
-    check(len(loss) == niter and np.isfinite(loss).all()
-          and (np.diff(loss) < 0).all(), f"loss.txt not decreasing: {loss}")
-    print(f"{label} loss.txt {loss.tolist()} decreasing; {n} gradient "
-          f"evaluations in {chunks} shot chunk(s) of {S} shots; launches = "
-          f"forward {fwd} x {chunks} x (1 + {n}) = "
-          f"{counts['LAUNCHES']} (with strips {counts['LAUNCHES_STRIPS']}),"
-          f" backward {bwd} x {chunks} x {n} = "
+    loss = hist[-out["nit"]:, 1] if out["nit"] else hist[:0, 1]
+    check(len(loss) == out["nit"] >= 1 and np.isfinite(hist[:, 1]).all(),
+          f"{label} loss.txt {hist[:, 1]} for {out['nit']} iterations")
+    if decreasing:
+        check(len(loss) == niter and (np.diff(loss) < 0).all()
+              and out["misfit"] <= loss[0], f"loss.txt not decreasing: {loss}")
+    print(f"{label} loss.txt {loss.tolist()}"
+          f"{' decreasing' if decreasing else ', finite'}; {n} gradient "
+          f"evaluations in {out['stages']} stage(s), {chunks} shot chunk(s) "
+          f"of {S} shots; launches = forward {fwd} x {chunks} x ({forwards} "
+          f"+ {n}) = {counts['LAUNCHES']} (with strips "
+          f"{counts['LAUNCHES_STRIPS']}), backward {bwd} x {chunks} x {n} = "
           f"{counts['LAUNCHES_BWD']}, as expected; plain calls "
           f"{plain_calls}")
     return counts, out, n, chunks
@@ -1048,6 +1067,102 @@ def phase_invert_large(dev):
                                (0, in_flight - 1))
     torch.cuda.empty_cache()
     return counts, numbers
+
+
+# Main-004's grid (examples/004_fwi_rock_physics.sh): 265x385 padded,
+# nt=4001, 31 shots, the rock scale of the JAX package's bench.
+ROCK_GRID = dict(nz=201, nx=321, dz=10.0, dx=10.0, nt=4001, dt=0.001,
+                 f0=15.0)
+
+
+def phase_rock(dev):
+    """The reference's rock-physics scripts through `invert` on the card:
+    Main-004 (--head rock_gassmann, --niter 2, loss.txt falling), its VRH
+    variant 00x (--head rock_vrh) and Main-005 (--model rock, the velocity
+    head), one L-BFGS-B iteration each; seconds an evaluation, gradient
+    GCell/s, the shot chunk and the peak memory of each.  Returns the
+    counts and the numbers by run."""
+    argv = [a for k, v in ROCK_GRID.items() for a in (f"--{k}", f"{v:g}")]
+    cfg, rs, _ = reference_problem(dev, **ROCK_GRID)
+    S = 31
+    cells = cfg.nz * cfg.nx * (cfg.nt - 1) * S
+    runs = {}
+    for name, flags, niter, decreasing in (
+            ("Main-004 --head rock_gassmann", ["--head", "rock_gassmann"],
+             2, True),
+            ("00x --head rock_vrh", ["--head", "rock_vrh"], 1, False),
+            ("Main-005 --model rock", ["--model", "rock"], 1, False)):
+        label = f"[24 rock] invert {name} at 265x385, nt=4001:"
+        counts, out, n, chunks = _invert(label, argv + flags, cfg, rs, S,
+                                         niter, decreasing=decreasing)
+        per_eval = out["seconds"] / n
+        peak = torch.cuda.max_memory_allocated()
+        print(f"{label} {out['seconds']:.3f} s in L-BFGS-B, {per_eval:.3f} s "
+              f"per gradient evaluation, {cells / per_eval / 1e9:.2f} GCell/s"
+              f" gradient; shot chunk {out['shot_chunk']} ({chunks} "
+              f"chunk(s)); peak memory {peak / 1e9:.3f} GB; final misfit "
+              f"{out['misfit']:.6e}")
+        runs[name] = dict(counts=counts, s_per_eval=per_eval,
+                          gcell_s=cells / per_eval / 1e9, evals=n,
+                          peak_gb=peak / 1e9)
+        torch.cuda.empty_cache()
+    return runs
+
+
+BANDS = "0,1e-4,2,6;0,1e-4,2,10"
+
+
+def phase_conditioned(ref_cfg, ref_rs):
+    """The conditioned misfits and the stage loop at the reference workload
+    through `invert` on the card, beside the plain-L2 run of the defaults:
+    two --bands stages with --win, --src-update (one forward more a stage),
+    --misfit xcorr and --energy-weights (whose per-trace weights supersede
+    the scalar window, as in the JAX package); --win with --misfit xcorr;
+    --invert-stf; then --generate_data, `invert --para-json` off the
+    para_file.json it wrote (the data read, not modelled) and the same with
+    --resume.  Returns the numbers by run."""
+    S = 19
+    cells = ref_cfg.nz * ref_cfg.nx * (ref_cfg.nt - 1) * S
+    runs = {}
+
+    def run(name, argv, niter, **kw):
+        label = f"[25 conditioned] invert {name}:"
+        counts, out, n, _ = _invert(label, argv, ref_cfg, ref_rs, S, niter,
+                                    **kw)
+        per_eval = out["seconds"] / n
+        print(f"{label} {per_eval:.3f} s per gradient evaluation, "
+              f"{cells / per_eval / 1e9:.2f} GCell/s gradient")
+        runs[name] = dict(counts=counts, s_per_eval=per_eval,
+                          gcell_s=cells / per_eval / 1e9, evals=n,
+                          src_updates=out["src_updates"])
+        return out
+
+    run("(plain L2, the defaults)", [], 2)
+    name = ("--bands (2 stages) --win --src-update --misfit xcorr "
+            "--energy-weights")
+    run(name, ["--bands", BANDS, "--win", "50,1400", "--src-update",
+               "--misfit", "xcorr", "--energy-weights"], 2, decreasing=False)
+    check(runs[name]["src_updates"] == 2,
+          "--src-update did not run once a stage")
+    run("--win --misfit xcorr", ["--win", "50,1400", "--misfit", "xcorr"],
+        2)
+    run("--invert-stf", ["--invert-stf"], 2)
+    with tempfile.TemporaryDirectory() as d:
+        data, exp = os.path.join(d, "Data"), os.path.join(d, "exp")
+        reset_counts()
+        check(cli.main(["invert", "--data-dir", data, "--exp-name", exp,
+                        "--generate_data"]) is None, "--generate_data")
+        counts, plain_calls = read_counts()
+        check_counts("[25 conditioned] invert --generate_data", counts,
+                     {"LAUNCHES": forward_launches(ref_cfg)}, plain_calls)
+        check(os.path.exists(os.path.join(data, "Shot_ett18.bin")),
+              "--generate_data wrote no Shot files")
+        para = os.path.join(data, "para_file.json")
+        run("--para-json", ["--para-json", para], 2, exp=exp,
+            data_forwards=0)
+        run("--para-json --resume", ["--para-json", para, "--resume"], 2,
+            exp=exp, data_forwards=0)
+    return runs
 
 
 def marmousi_problem(dev, nz, nx, nt, S):
@@ -2116,6 +2231,8 @@ def main(argv=None):
         (19, lambda: phase_acoustic_main_paths(dev, results[18])),
         (22, lambda: phase_shot_sums(dev)),
         (23, lambda: phase_acoustic_points(dev)),
+        (24, lambda: phase_rock(dev)),
+        (25, lambda: phase_conditioned(ref_cfg, ref_rs)),
         (6, lambda: phase_profile(dev)),
     ]
     only = {int(k) for k in args.phases.split(",") if k.strip()}

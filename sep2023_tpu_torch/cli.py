@@ -1,24 +1,33 @@
 """Experiment drivers of the port, as a `python -m sep2023_tpu_torch` CLI.
 
   forward   observed-data generation + throughput report   (Main-000)
-  invert    twin-experiment FWI, scipy L-BFGS-B             (Main-001..003)
+  invert    twin-experiment FWI with any parameterization   (Main-001..005)
+              --head vp_vs_rho   -> Main-001
+              --head lame_rho    -> Main-002
+              --head ip_is_rho   -> Main-003
+              --head rock_gassmann -> Main-004 (--head rock_vrh: 00x)
+              --model rock (a velocity head) -> Main-005 (NO-PCS)
   rtm       reverse-time-migration image of a layered twin  (main.cu:322+)
 
 PyTorch counterpart of `sep2023_tpu/cli.py`.  `forward` runs both physics
 (`--physics elastic|acoustic`) and `rtm` both imaging conditions (the
 acoustic time-derivative one by default, the elastic zero-lag one).
-`invert` is ported in its default configuration (L2 misfit on the selected
-channels, one stage, the scipy optimizer, one device); each of its other
-options raises NotImplementedError naming its ROADMAP item, and `bench`
-comes with a later slice (ROADMAP M8).  `--device cuda` (the default) runs
-the CUDA kernels and raises for work they cannot take; `--device cpu` runs
-the plain PyTorch versions (and, with `--x64`, float64).  Models are
-synthesized (models.py) because the reference git-ignores its
-Models/*.txt grids.
+`invert` takes every option of the JAX package's on one device: the
+conditioned misfits, the multiscale stage loop with the per-stage source
+update, the joint source inversion, resume, and the reference's JSON and
+scratch files.  Shot sharding (`--n-devices` > 1, ROADMAP M10) and the
+on-device optimizer (`--optimizer ondevice`, M11) raise
+NotImplementedError, and `bench` comes with a later slice (M8).
+`--device cuda` (the default) runs the CUDA kernels and raises for work
+they cannot take; `--device cpu` runs the plain PyTorch versions (and,
+with `--x64`, float64).  Models are synthesized (models.py) because the
+reference git-ignores its Models/*.txt grids.
 """
 from __future__ import annotations
 
 import argparse
+import glob
+import json
 import os
 import time
 
@@ -30,8 +39,10 @@ from sep2023_tpu_torch import (acoustic, heads, imaging, medium, models,
 from sep2023_tpu_torch import io as sio
 from sep2023_tpu_torch import survey_tools
 from sep2023_tpu_torch.config import (SimConfig, Survey, klauder, ricker,
-                                      ricker_integrated, sim_config_to_json)
+                                      ricker_integrated, sim_config_from_json,
+                                      sim_config_to_json)
 from sep2023_tpu_torch.ops import cuda_acoustic, cuda_engine
+from sep2023_tpu_torch.ops import misfit as mf
 from sep2023_tpu_torch.ops import signal as sg
 from sep2023_tpu_torch.propagator import CHANNELS, propagate
 
@@ -162,35 +173,40 @@ def _export_config(data_dir, cfg, survey):
 
 
 def build_stage_loss(cfg, survey, geoms, *, use_kernels, shot_chunk,
-                     channels):
-    """The loss of one stage, data_loss(lam, mu, rho, stf, obs, weights):
+                     channels, objective="l2", filter_corners=None,
+                     per_trace=False, dynamic_bandpass=False, window=None):
+    """The loss of one stage, for every (engine x misfit x conditioning)
+    combination: data_loss(lam, mu, rho, stf, obs, weights, *trace_aux),
     the CUDA kernels' (`make_cuda_misfit`) or the plain propagator's
-    (`make_local_misfit`), L2 on `channels`.  The JAX package's other
-    misfits, conditioning and sharded losses are ROADMAP M3 and M10."""
+    (`make_local_misfit`).  Plain L2 on `channels` unless an objective,
+    a band-pass (static `filter_corners`, or with dynamic_bandpass a
+    per-shot (S, nfreq) response as the last trace_aux), a scalar `window`
+    or per_trace conditioning ((S, R) win_start, win_end and trace weights
+    as the first three trace_aux, superseding `window`, as the reference's
+    per-trace entries override if_win, Src_Rec.cu:145-200) asks for
+    `misfit.make_preprocessed_l2`."""
+    if (per_trace or objective != "l2" or filter_corners is not None
+            or dynamic_bandpass or window is not None):
+        fn = mf.make_preprocessed_l2(
+            channels=tuple(channels), dt=cfg.dt,
+            filter_corners=filter_corners, per_trace=per_trace,
+            objective=objective, dynamic_bandpass=dynamic_bandpass,
+            window=window)
+    else:
+        fn = None
     if use_kernels:
         return parallel.make_cuda_misfit(cfg, survey, channels=tuple(channels),
-                                         shot_chunk=shot_chunk)
+                                         shot_chunk=shot_chunk, misfit_fn=fn)
     base = parallel.make_local_misfit(cfg, channels=tuple(channels),
-                                      shot_chunk=shot_chunk)
-    return lambda lam, mu, rho, stf, obs, w: base(lam, mu, rho, stf, geoms,
-                                                  obs, w)
+                                      shot_chunk=shot_chunk, misfit_fn=fn)
+    return lambda lam, mu, rho, stf, obs, w, *aux: base(
+        lam, mu, rho, stf, geoms, obs, w, *aux)
 
 
 def _reject_unported(args):
     """Options of the JAX package's `invert` that the port does not have
     yet raise, naming their ROADMAP item."""
     unported = [
-        (args.misfit != "l2", "--misfit xcorr", "M3"),
-        (args.energy_weights, "--energy-weights", "M3"),
-        (args.multiscale or args.bands, "--multiscale/--bands", "M3"),
-        (args.win is not None, "--win", "M3"),
-        (args.src_update, "--src-update", "M3"),
-        (args.save_mat, "--save-mat", "M5"),
-        (args.invert_stf, "--invert-stf", "M7"),
-        (args.resume, "--resume", "M7"),
-        (args.para_json, "--para-json", "M7"),
-        (args.survey_json, "--survey-json", "M7"),
-        (args.scratch_dir, "--scratch-dir", "M7"),
         (args.n_devices > 1, "--n-devices", "M10"),
         (args.optimizer == "ondevice", "--optimizer ondevice", "M11"),
     ]
@@ -211,13 +227,77 @@ def shot_weights(survey, *, device, dtype):
         device, dtype) ** 2
 
 
+def _load_para_json(args):
+    """Run straight off a reference-schema para_file.json
+    (Parameter.cpp:17-178): its grid/time/PML settings, its survey_fname and
+    data_dir_name unless given on the command line, its `filter` corners as
+    one band-passed stage (Parameter.cpp:139-177) unless --bands is given,
+    and its if_win window unless --win is given."""
+    with open(args.para_json) as fp:
+        pd = json.load(fp)
+    pcfg = sim_config_from_json(args.para_json)
+    args.nz = pcfg.nz - 2 * pcfg.npml
+    args.nx = pcfg.nx - 2 * pcfg.npml
+    args.dz, args.dx = pcfg.dz, pcfg.dx
+    args.nt, args.dt, args.f0 = pcfg.nt, pcfg.dt, pcfg.f0
+    args.npml = pcfg.npml
+    if not args.survey_json and pd.get("survey_fname"):
+        args.survey_json = pd["survey_fname"]
+    if not args.data_dir and pd.get("data_dir_name"):
+        args.data_dir = pd["data_dir_name"]
+    if not args.bands and pd.get("filter"):
+        args.bands = ",".join(str(float(v)) for v in pd["filter"])
+        print(f"band-pass from para filter: {args.bands}")
+    if args.win is None and pd.get("if_win") and "win_start" in pd:
+        args.win = f"{pd['win_start']},{pd['win_end']}"
+    print(f"para loaded from {args.para_json}: grid {pcfg.nz}x{pcfg.nx} "
+          f"(padded), nt={pcfg.nt}, dt={pcfg.dt}, npml={pcfg.npml}")
+
+
+def _stages(args):
+    """The band-pass corners of each stage: one quadruple a ';'-separated
+    --bands entry (Main-001:46-51), the classic 2.5..7.5 Hz ramp for
+    --multiscale alone, else one unfiltered stage [None]."""
+    if args.bands:
+        try:
+            stages = [tuple(float(v) for v in b.split(","))
+                      for b in args.bands.split(";") if b.strip()]
+        except ValueError:
+            raise SystemExit(f"--bands must be 'f0,f1,f2,f3;...', "
+                             f"got {args.bands!r}")
+        if not stages or any(len(b) != 4 for b in stages):
+            raise SystemExit("each --bands stage needs exactly 4 corner "
+                             "frequencies f0,f1,f2,f3 (Main-001:46-51)")
+        return stages
+    if args.multiscale:
+        return [(0.0, 1e-4, 2.0, hf) for hf in (2.5, 3.5, 4.5, 5.5, 6.5, 7.5)]
+    return [None]
+
+
+def _window(args):
+    """(start, end) samples of --win, or None."""
+    if not args.win:
+        return None
+    try:
+        w0, w1 = (float(v) for v in args.win.split(","))
+    except ValueError:
+        raise SystemExit(f"--win must be 'start,end' samples, "
+                         f"got {args.win!r}")
+    print(f"scalar taper window [{w0:g}, {w1:g}] samples (if_win, "
+          "utilities.cu:790-884)")
+    return w0, w1
+
+
 def cmd_invert(args):
-    """Twin-experiment FWI in the default configuration: observed data from
-    the true model, then scipy L-BFGS-B from the smoothed initial model,
-    each evaluation one gradient (forward with strips, L2 misfit, adjoint,
-    the head's chain rule).  Writes Results/loss.txt and model/gradient
-    snapshots under --exp-name.  Returns a summary dict (evaluations, final
-    misfit, seconds of the optimizer, shots per gradient chunk)."""
+    """Twin-experiment FWI (Main-001..005): observed data from the true
+    model (or read from --data-dir), then scipy L-BFGS-B from the smoothed
+    initial model, each evaluation one gradient (forward with strips, the
+    misfit, adjoint, the head's chain rule), in one stage or in the
+    band-pass stages of --bands/--multiscale.  Writes Results/loss.txt and
+    model/gradient snapshots under --exp-name.  Returns a summary dict
+    (evaluations and iterations of all stages, final misfit, seconds in
+    the optimizer, shots per gradient chunk, stages, forwards of
+    --src-update), or None after --generate_data."""
     _reject_unported(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -227,14 +307,28 @@ def cmd_invert(args):
         raise NotImplementedError("--x64 runs on the CPU only: the CUDA "
                                   "kernels compute in float32")
     dtype = torch.float64 if args.x64 else torch.float32
+    if args.para_json:
+        _load_para_json(args)
     cfg, survey, geoms, stf = benchmark_problem(
         nz=args.nz, nx=args.nx, dz=args.dz, dx=args.dx, nt=args.nt,
         dt=args.dt, f0=args.f0, npml=args.npml, wavelet=args.wavelet,
         device=device, dtype=dtype)
+    if args.survey_json:
+        # acquisition (with per-trace windows/weights and src_weights) from
+        # a reference-schema survey_file.json (Src_Rec.cu:20-282)
+        survey = Survey.from_json(args.survey_json)
+        geoms = parallel.survey_to_geoms(survey, cfg.npml, device=device,
+                                         dtype=dtype)
+        w = torch.as_tensor(WAVELETS[args.wavelet](cfg.f0, cfg.nt, cfg.dt),
+                            device=device).to(dtype)
+        stf = w.expand(survey.n_shots, cfg.nt)
+        print(f"survey loaded from {args.survey_json}: "
+              f"{survey.n_shots} shots, {survey.n_rec} receivers")
     # taper the wavelet ends exactly as the reference does on upload
     # (cuda_window(..., 0.001, ...), Src_Rec.cu:130-142)
     stf = (stf * sg.taper_window(cfg.nt, cfg.dt, ratio=0.001, device=device,
                                  dtype=dtype)).contiguous()
+    window = _window(args)
     grid = cfg.grid
     os.makedirs(args.exp_name, exist_ok=True)
 
@@ -263,6 +357,8 @@ def cmd_invert(args):
         plan, _ = parallel._cuda_plan(cfg, survey)
     print("engine: " + (cuda_engine.plan_engine_name(plan) if use_kernels
                         else "plain PyTorch (CPU)"))
+    # the twin data, the --src-update synthetics and the scratch dumps run
+    # through the same engine and chunks as the stage losses
     fwd = parallel.make_forward(cfg, survey, use_kernels=use_kernels,
                                 shot_chunk=args.shot_chunk, device=device,
                                 dtype=dtype)
@@ -270,6 +366,11 @@ def cmd_invert(args):
     def tensors(params):
         return {k: torch.as_tensor(np.asarray(v)).to(device, dtype)
                 for k, v in params.items()}
+
+    def model_of(params):
+        """(lam, mu, rho) of the head at params (stf left out)."""
+        return head.apply({**init_t, **tensors(
+            {k: v for k, v in params.items() if k != "stf"})})
 
     # --- observed data (twin experiment) --------------------------------
     lam_t, mu_t, rho_t = head.apply(tensors(true_params))
@@ -296,37 +397,134 @@ def cmd_invert(args):
         print(f"data written to {data_dir}; exiting (--generate_data)")
         return None
 
+    # --- per-trace conditioning + per-shot weights (Src_Rec.cu:145-200) --
+    if args.energy_weights and survey.trace_weights is None:
+        survey.trace_weights = survey_tools.energy_trace_weights(
+            obs[:, 3].cpu().numpy())  # balance on the DAS channel
+        print("per-trace energy weights computed from observed data "
+              "(weightObsTraces, fwi_util.jl:196+)")
+    # ragged spreads fold their live-trace mask into the per-trace weights
+    # (padded replica traces must carry zero weight, Src_Rec.cu:87-116)
+    tw_live = survey.live_trace_weights()
+    per_trace = survey.win_start is not None or tw_live is not None
+    S, R = survey.n_shots, survey.n_rec
+    if per_trace:
+        ws = (survey.win_start if survey.win_start is not None
+              else np.zeros((S, R)))
+        we = (survey.win_end if survey.win_end is not None
+              else np.full((S, R), cfg.nt - 1))
+        tw = tw_live if tw_live is not None else np.ones((S, R))
+        trace_aux = tuple(torch.as_tensor(np.asarray(a)).to(device, dtype)
+                          for a in (ws, we, tw))
+        print("per-trace windows/weights active"
+              + (" (incl. ragged live mask)" if survey.ragged else ""))
+    else:
+        trace_aux = ()
+    weights = shot_weights(survey, device=device, dtype=dtype)
+
     bad = [c for c in args.channels if c not in CHANNELS]
     if bad:
         raise SystemExit(f"unknown channel(s) {bad}; choose from {CHANNELS}")
-    weights = shot_weights(survey, device=device, dtype=dtype)
-    data_loss = build_stage_loss(cfg, survey, geoms, use_kernels=use_kernels,
-                                 shot_chunk=args.shot_chunk,
-                                 channels=args.channels)
 
-    def loss(params, stf_, obs_):
-        lam, mu, rho = head.apply({**init_t, **params})
-        return data_loss(lam, mu, rho, stf_, obs_, weights)
+    def make_param_loss(corners):
+        data_loss = build_stage_loss(
+            cfg, survey, geoms, use_kernels=use_kernels,
+            shot_chunk=args.shot_chunk, channels=args.channels,
+            objective=args.misfit, filter_corners=corners,
+            per_trace=per_trace, window=window)
+
+        def loss(params, stf_, obs_):
+            stf_used = params["stf"] if "stf" in params else stf_
+            lam, mu, rho = head.apply({**init_t, **params})
+            return data_loss(lam, mu, rho, stf_used, obs_, weights,
+                             *trace_aux)
+        return loss
 
     start_params = {k: init_params[k] for k in invert_names}
-    obj = optimize.ScipyObjective(
-        loss, start_params,
-        bounds={k: bounds[k] for k in invert_names} if bounds else None,
-        aux=(stf, obs), device=device, dtype=dtype)
-    logger = optimize.InversionLogger(os.path.join(args.exp_name, "Results"),
-                                      obj)
-    print(f"L-BFGS-B: {args.niter} iterations, head={args.head}")
-    t0 = time.perf_counter()
-    res = optimize.lbfgsb(obj, maxiter=args.niter, callback=logger)
-    seconds = time.perf_counter() - t0
-    cells = cfg.nz * cfg.nx * (cfg.nt - 1) * survey.n_shots
-    per_eval = seconds / max(obj.n_evals, 1)
-    print(f"stage misfit {res.fun:.6e} after {res.nit} iterations "
-          f"({obj.n_evals} evaluations, {per_eval:.3f} s each, "
-          f"{cells / per_eval / 1e9:.2f} GCell/s gradient)")
-    return {"n_evals": obj.n_evals, "nit": int(res.nit),
-            "misfit": float(res.fun), "seconds": seconds,
-            "shot_chunk": args.shot_chunk}
+    if args.invert_stf:
+        # joint source-model inversion: the d_stf gradients the reference
+        # computes but never optimizes over (Torch_Fwi.cpp:102) become
+        # parameters, without bounds
+        start_params["stf"] = stf.cpu().numpy()
+        print("joint source inversion: stf added to the parameter set")
+    if args.resume:
+        # resume from the latest snapshot (the reference resumes manually
+        # from its per-iteration .mat dumps, Main-001:137-154)
+        snaps = sorted(glob.glob(os.path.join(args.exp_name, "Results",
+                                              "model_*.npz")))
+        if snaps:
+            with np.load(snaps[-1]) as z:
+                for k in list(start_params):
+                    if k in z.files:
+                        start_params[k] = z[k]
+            print(f"resumed from {snaps[-1]}")
+
+    # multiscale frequency continuation: the reference's per-stage band-pass
+    # list (Main-001:46-51), each stage with its own static filter
+    stages = _stages(args)
+    iters_per_stage = max(1, args.niter // len(stages))
+    iter_offset = n_evals = nit = src_updates = 0
+    seconds = 0.0
+    res = None
+    for istage, corners in enumerate(stages):
+        if args.src_update and not args.invert_stf:
+            # in-loop spectral (Wiener) source re-estimation from the
+            # CURRENT model's synthetics at the start of every stage (the
+            # reference's if_src_update, utilities.cu:905-978)
+            syn_c = fwd(*model_of(start_params), stf)
+            with torch.no_grad():
+                stf = torch.stack([
+                    sg.apply_source_filter(stf[i], sg.source_update_filter(
+                        obs[i, 3], syn_c[i, 3])) for i in range(S)
+                ]).contiguous()
+            src_updates += 1
+            print(f"stage {istage + 1}: source wavelets re-estimated "
+                  "(Wiener spectral correction)")
+        if corners is not None:
+            print(f"multiscale stage {istage + 1}/{len(stages)}: "
+                  f"band {corners}")
+        obj = optimize.ScipyObjective(
+            make_param_loss(corners), start_params,
+            bounds=({k: bounds[k] for k in invert_names} if bounds
+                    else None),
+            aux=(stf, obs), device=device, dtype=dtype)
+        logger = optimize.InversionLogger(
+            os.path.join(args.exp_name, "Results"), obj,
+            start_iter=iter_offset, save_mat=args.save_mat)
+        print(f"L-BFGS-B: {iters_per_stage} iterations, head={args.head}")
+        t0 = time.perf_counter()
+        res = optimize.lbfgsb(obj, maxiter=iters_per_stage, callback=logger)
+        t_stage = time.perf_counter() - t0
+        seconds += t_stage
+        n_evals += obj.n_evals
+        nit += int(res.nit)
+        iter_offset = logger.it
+        start_params = {k: v.cpu().numpy()
+                        for k, v in obj.unpack(res.x).items()}
+        cells = cfg.nz * cfg.nx * (cfg.nt - 1) * S
+        per_eval = t_stage / max(obj.n_evals, 1)
+        print(f"stage misfit {res.fun:.6e} after {res.nit} iterations "
+              f"({obj.n_evals} evaluations, {per_eval:.3f} s each, "
+              f"{cells / per_eval / 1e9:.2f} GCell/s gradient)")
+
+    if args.scratch_dir:
+        # final synthetics / residuals / observed data, the reference's
+        # if_save_scratch dumps (libCUFD.cu:732-752)
+        cur_stf = (torch.as_tensor(start_params["stf"]).to(device, dtype)
+                   if "stf" in start_params else stf)
+        syn = fwd(*model_of(start_params), cur_stf).cpu().numpy()
+        obs_np = obs.cpu().numpy()
+        res_d = obs_np - syn
+        res_d[..., 0] = 0.0
+        os.makedirs(args.scratch_dir, exist_ok=True)
+        for name, d in (("Syn", syn), ("Residual", res_d),
+                        ("CondObs", obs_np)):
+            sio.write_shots_survey(os.path.join(args.scratch_dir, name), d,
+                                   survey)
+        print(f"scratch dumps written to {args.scratch_dir}")
+    return {"n_evals": n_evals, "nit": nit, "misfit": float(res.fun),
+            "seconds": seconds, "shot_chunk": args.shot_chunk,
+            "stages": len(stages), "src_updates": src_updates}
 
 
 def _rtm_acoustic(cfg, survey, vpt, vpb, rho, stf, device):
@@ -532,25 +730,54 @@ def main(argv=None):
     i.add_argument("--x64", action="store_true",
                    help="float64 (with --device cpu only)")
     i.add_argument("--model", default="anomaly", choices=("anomaly", "rock"),
-                   help="'rock' needs rock_physics (ROADMAP M4)")
+                   help="'rock' + a velocity head = Main-005 (NO-PCS) flow")
     i.add_argument("--shot-chunk", type=int, default=-1,
                    help="shots per gradient chunk (bounds boundary-strip "
                         "memory; -1 = auto-size from the grid so the "
                         "strips fit device memory, 0 = unchunked)")
-    # options of the JAX package's invert that are not ported yet: each
+    i.add_argument("--misfit", default="l2", choices=("l2", "xcorr"),
+                   help="objective: L2 (libCUFD.cu:427) or normalized "
+                        "cross-correlation (if_cross_misfit, "
+                        "utilities.cu:1011-1113)")
+    i.add_argument("--energy-weights", action="store_true",
+                   help="balance traces by 1/energy computed from the "
+                        "observed data (weightObsTraces, fwi_util.jl:196+)")
+    i.add_argument("--multiscale", action="store_true",
+                   help="frequency-continuation over the reference's "
+                        "band-pass stages (Main-001:46-51)")
+    i.add_argument("--bands", default="",
+                   help="custom multiscale schedule "
+                        "'f0,f1,f2,f3;f0,f1,f2,f3;...': one band-pass "
+                        "stage per ;-separated corner quadruple "
+                        "(Main-001:46-51); implies --multiscale")
+    i.add_argument("--win", default=None,
+                   help="scalar taper window 'start,end' in samples applied "
+                        "to obs+syn (the para if_win flag, "
+                        "utilities.cu:790-884)")
+    i.add_argument("--src-update", action="store_true",
+                   help="re-estimate source wavelets (Wiener spectral "
+                        "correction) from the current model at every stage "
+                        "(if_src_update, utilities.cu:905-978)")
+    i.add_argument("--invert-stf", action="store_true",
+                   help="joint source-model inversion: optimize the source "
+                        "wavelets via their adjoint gradient")
+    i.add_argument("--resume", action="store_true",
+                   help="resume from the latest Results/model_*.npz")
+    i.add_argument("--para-json", default="",
+                   help="run from a reference-schema para_file.json "
+                        "(grid/time/PML settings + survey_fname + "
+                        "data_dir_name, Parameter.cpp:17-178)")
+    i.add_argument("--survey-json", default="",
+                   help="load acquisition (incl. per-trace win/weights) "
+                        "from a reference-schema survey_file.json")
+    i.add_argument("--scratch-dir", default="",
+                   help="write final syn/residual/obs shot dumps "
+                        "(if_save_scratch, libCUFD.cu:732-752)")
+    i.add_argument("--save-mat", action="store_true",
+                   help="also write reference-format .mat snapshots per "
+                        "iteration (Main-001:144-150)")
+    # the on-device optimizer and shot sharding are not ported yet: each
     # raises NotImplementedError naming its ROADMAP item
-    i.add_argument("--misfit", default="l2", choices=("l2", "xcorr"))
-    i.add_argument("--energy-weights", action="store_true")
-    i.add_argument("--multiscale", action="store_true")
-    i.add_argument("--bands", default="")
-    i.add_argument("--win", default=None)
-    i.add_argument("--src-update", action="store_true")
-    i.add_argument("--invert-stf", action="store_true")
-    i.add_argument("--resume", action="store_true")
-    i.add_argument("--para-json", default="")
-    i.add_argument("--survey-json", default="")
-    i.add_argument("--scratch-dir", default="")
-    i.add_argument("--save-mat", action="store_true")
     i.add_argument("--optimizer", default="scipy",
                    choices=("scipy", "ondevice"))
     i.add_argument("--n-devices", type=int, default=0,

@@ -9,8 +9,7 @@ heads, `FWI_ops.py:66-619`).  Each head is a function
 composed of a bilinear resize + replicate pad onto the padded grid, a mask
 blend against frozen padded reference fields
 (`X = mask * X_pad + (1-mask) * X_ref`, FWI_ops.py:120-122) and the head's
-physics map.  Autograd supplies every head's chain rule.  The two rock
-physics heads need `rock_physics`, not ported yet (ROADMAP M4).
+physics map.  Autograd supplies every head's chain rule.
 """
 from __future__ import annotations
 
@@ -20,6 +19,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from sep2023_tpu_torch import rock_physics as rp
 from sep2023_tpu_torch.config import Grid
 from sep2023_tpu_torch.medium import resize_and_pad
 
@@ -113,17 +113,19 @@ def vp_vs_is(grid, init, mask=None, bounds=None) -> Head:
     return _make(grid, ("vp", "vs", "is"), init, to_lame, mask, bounds)
 
 
-def _rock_head(name):
-    def head(grid, init, mask=None, bounds=None) -> Head:
-        raise NotImplementedError(
-            f"the {name} head needs rock_physics, not ported yet "
-            "(ROADMAP M4)")
-    head.__name__ = name
-    return head
+def rock_vrh(grid, init, mask=None, bounds=None) -> Head:
+    """(porosity, clay, saturation) head, VRH bound
+    (`FWI_Rock_Physics_VRH`, FWI_ops.py:401-508)."""
+    return _make(grid, ("phi", "cc", "sw"), init, rp.pcs_to_lame_vrh,
+                 mask, bounds)
 
 
-rock_vrh = _rock_head("rock_vrh")
-rock_gassmann = _rock_head("rock_gassmann")
+def rock_gassmann(grid, init, mask=None, bounds=None) -> Head:
+    """(porosity, clay, saturation) head, Gassmann fluid substitution
+    (`FWI_Rock_Physics_gassmann`, FWI_ops.py:516-619)."""
+    return _make(grid, ("phi", "cc", "sw"), init, rp.pcs_to_lame_gassmann,
+                 mask, bounds)
+
 
 HEADS = {
     "vp_vs_rho": vp_vs_rho,

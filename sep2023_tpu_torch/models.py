@@ -1,6 +1,8 @@
 """Synthetic earth-model builders.
 
-A numpy/scipy copy of `sep2023_tpu/models.py` (the port imports no jax).
+A numpy/scipy copy of `sep2023_tpu/models.py` (the port imports no jax);
+the Gassmann true model of `twin_experiment_setup(model="rock")` goes
+through the port's `rock_physics`.
 
 The reference's model grids (Models/*.txt, e.g.
 Anomaly_P-WAVE_VELOCITY_101_201.txt, Main-001:78-80) are excluded from its
@@ -15,7 +17,10 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import numpy as np
+import torch
 from scipy.ndimage import gaussian_filter
+
+from sep2023_tpu_torch import rock_physics as rp
 
 
 def constant(nz: int, nx: int, value: float) -> np.ndarray:
@@ -74,12 +79,18 @@ def twin_experiment_setup(head: str, nz: int, nx: int,
     twin experiments of the reference drivers Main-001..005, per head.
 
     model='rock' with a velocity head is the Main-005 flow (NO-PCS):
-    invert vp/vs/rho directly on data from the Gassmann reservoir model.
+    invert vp/vs/rho directly on data from the Gassmann reservoir model,
+    computed in float64 (the JAX CLI without --x64 takes its square roots
+    and lam, mu in float32; PERF.md section 7).
     """
     if model == "rock" and head not in ("rock_vrh", "rock_gassmann"):
-        raise NotImplementedError(
-            "the rock model needs rock_physics, not ported yet (ROADMAP M4)")
-    vp, vs, rho = anomaly_vp_vs_rho(nz, nx)
+        phi, cc, sw = (torch.from_numpy(a) for a in reservoir_pcs(nz, nx))
+        lam, mu, rho = (a.numpy()
+                        for a in rp.pcs_to_lame_gassmann(phi, cc, sw))
+        vp = np.sqrt((lam + 2 * mu) / rho)
+        vs = np.sqrt(mu / rho)
+    else:
+        vp, vs, rho = anomaly_vp_vs_rho(nz, nx)
     sm = lambda d: {k: smooth(v, 8.0) for k, v in d.items()}
     if head in ("rock_vrh", "rock_gassmann"):
         phi, cc, sw = reservoir_pcs(nz, nx)

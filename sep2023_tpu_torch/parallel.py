@@ -194,10 +194,11 @@ def make_local_misfit(cfg: SimConfig, channels: Sequence[str] = ("ett",),
     loss(lam, mu, rho, stf, geoms, obs, weights, *trace_aux).
 
     misfit_fn(obs_s, syn_s, *aux_s) is a per-shot objective on (4, R, nt)
-    data returning a scalar (default: L2 on `channels`), applied shot by
-    shot; every tensor of trace_aux leads with the shot axis and is chunked
-    with the other per-shot inputs.  The adjoint source flows back into the
-    propagator as the data cotangent either way."""
+    data returning a scalar (default: L2 on `channels`), applied to the
+    chunk through its batched form where it has one, else shot by shot
+    (`_over_shots`); every tensor of trace_aux leads with the shot axis and
+    is chunked with the other per-shot inputs.  The adjoint source flows
+    back into the propagator as the data cotangent either way."""
     fn = (default_shot_misfit(channels) if misfit_fn is None
           else _over_shots(misfit_fn))
 
@@ -252,8 +253,12 @@ def _gather_union(syn, uidx_c):
 
 def _over_shots(fn):
     """A per-shot misfit fn(obs_s, syn_s, *aux_s) -> scalar as a function of
-    the whole chunk, (S,): a Python loop over the shot axis (the JAX
-    package's jax.vmap(fn)); autograd differentiates through it."""
+    the whole chunk, (S,) (the JAX package's jax.vmap(fn)): fn.batched when
+    the misfit has that form (`misfit.make_preprocessed_l2`), else a Python
+    loop over the shot axis; autograd differentiates through either."""
+    batched = getattr(fn, "batched", None)
+    if batched is not None:
+        return batched
     return lambda o, s, *aux: torch.stack(
         [fn(o[i], s[i], *(a[i] for a in aux)) for i in range(o.shape[0])])
 
@@ -270,8 +275,9 @@ def make_cuda_misfit(cfg: SimConfig, survey: Survey,
     receivers, or a ragged union); das_w carries the (R, 3) fiber weights
     when cfg.das_channel is 'weighted'.  misfit_fn(obs_s, syn_s, *aux_s) is
     a per-shot objective on (4, R, nt) data returning a scalar (default: L2
-    on `channels`); it is applied shot by shot in a Python loop and the
-    weighted results are summed.  Every tensor of trace_aux leads with the
+    on `channels`); it is applied to the chunk through its batched form
+    where it has one, else shot by shot (`_over_shots`), and the weighted
+    results are summed.  Every tensor of trace_aux leads with the
     shot axis.  shot_chunk > 0 bounds the strip memory through the chunked
     accumulator (`_chunked_sum`; gradients flow to the model and stf)."""
     plan, uidx = _cuda_plan(cfg, survey, das_w)

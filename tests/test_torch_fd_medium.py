@@ -151,8 +151,16 @@ def test_models():
         assert t[2:] == j[2:]
     np.testing.assert_array_equal(tmodels.overthrust_vp(30, 40),
                                   jmodels.overthrust_vp(30, 40))
-    with pytest.raises(NotImplementedError, match="M4"):
-        tmodels.twin_experiment_setup("vp_vs_rho", 20, 30, model="rock")
+    # the Gassmann true model of Main-005 (float64, as the JAX tests run)
+    t = tmodels.twin_experiment_setup("vp_vs_rho", 20, 30, model="rock")
+    j = jmodels.twin_experiment_setup("vp_vs_rho", 20, 30, model="rock")
+    for dt_, dj in zip(t[:2], j[:2]):
+        assert dt_.keys() == dj.keys()
+        for k in dt_:
+            np.testing.assert_allclose(dt_[k], dj[k], rtol=1e-14)
+    assert t[2].keys() == j[2].keys() and t[3] == j[3]
+    for k in t[2]:
+        np.testing.assert_allclose(t[2][k], j[2][k], rtol=1e-14)
 
 
 def test_survey_tools():

@@ -1,6 +1,7 @@
 """The port's invert path against the JAX package's, on the CPU.
 
-* medium.resize_and_pad, the five non-rock heads (apply and gradient),
+* medium.resize_and_pad, the five non-rock heads (apply and gradient;
+  the rock heads are in tests/test_torch_rock.py),
   misfit.l2_misfit: the JAX functions on the same numpy inputs, float64.
 * parallel: the chunked gradient accumulator equals the unchunked loss and
   gives the data zero gradients; auto_shot_chunk sizes chunks by the
@@ -8,8 +9,10 @@
 * cli invert --device cpu --x64 at the size of tests/test_cli.py's TINY:
   its first misfit equals the JAX package's `invert` on the same arguments
   to 1e-10, and its loss.txt trajectory to 1e-6; --generate_data, then a
-  run that loads the written data; every option that is not ported raises
-  NotImplementedError naming its ROADMAP item.
+  run that loads the written data; the two options that are not ported
+  (shot sharding, the on-device optimizer) raise NotImplementedError
+  naming their ROADMAP items.  The other options of `invert` are held to
+  the JAX package in tests/test_torch_invert_*.py.
 """
 import os
 
@@ -83,14 +86,6 @@ def test_head_matches_jax(name):
     for k, g in zip(names, g_t):
         b = np.asarray(g_j[k])
         assert np.abs(g.numpy() - b).max() <= 1e-12 * np.abs(b).max(), k
-
-
-@pytest.mark.parametrize("name", ["rock_vrh", "rock_gassmann"])
-def test_rock_heads_raise(name):
-    grid = SimConfig(nz=20, nx=30, dz=20.0, dx=20.0, nt=10, dt=0.002,
-                     f0=10.0, npml=4).grid
-    with pytest.raises(NotImplementedError, match="M4"):
-        heads.HEADS[name](grid, {})
 
 
 @pytest.mark.parametrize("channels", [("ett",), ("pr", "vx", "vz")])
@@ -225,22 +220,8 @@ def test_invert_generate_then_load(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--misfit", "xcorr"], "M3"),
-    (["--energy-weights"], "M3"),
-    (["--multiscale"], "M3"),
-    (["--bands", "0,1,2,3"], "M3"),
-    (["--win", "0,50"], "M3"),
-    (["--src-update"], "M3"),
-    (["--save-mat"], "M5"),
-    (["--invert-stf"], "M7"),
-    (["--resume"], "M7"),
-    (["--para-json", "p.json"], "M7"),
-    (["--survey-json", "s.json"], "M7"),
-    (["--scratch-dir", "d"], "M7"),
     (["--n-devices", "2"], "M10"),
     (["--optimizer", "ondevice"], "M11"),
-    (["--model", "rock"], "M4"),
-    (["--head", "rock_vrh", "--model", "rock"], "M4"),
 ])
 def test_unported_invert_options_raise(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):

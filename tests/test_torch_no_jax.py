@@ -1,9 +1,9 @@
 """The port stands alone and never falls back.
 
 * Importing sep2023_tpu_torch (cli, api, the CUDA engines, the invert
-  path's modules, acoustic, imaging) loads neither jax nor sep2023_tpu: the
-  machine with the card has no JAX.  No module of the port names either in
-  an import statement.
+  path's modules with rock_physics and ops.signal, acoustic, imaging)
+  loads neither jax nor sep2023_tpu: the machine with the card has no
+  JAX.  No module of the port names either in an import statement.
 * forward_cuda_plan, backward_cuda_plan, reconstruct_cuda_plan,
   propagate_cuda_plan, make_cuda_misfit, ElasticPropagator.apply_gradient
   and `cli invert` on a device that is not the CPU build and launch the
@@ -53,6 +53,7 @@ def test_import_loads_no_jax():
         "sep2023_tpu_torch.api, sep2023_tpu_torch.ops.cuda_engine, "
         "sep2023_tpu_torch.convert, sep2023_tpu_torch.io, "
         "sep2023_tpu_torch.heads, sep2023_tpu_torch.optimize, "
+        "sep2023_tpu_torch.rock_physics, sep2023_tpu_torch.ops.signal, "
         "sep2023_tpu_torch.ops.misfit, sep2023_tpu_torch.parallel, "
         "sep2023_tpu_torch.testing, sep2023_tpu_torch.acoustic, "
         "sep2023_tpu_torch.imaging, sep2023_tpu_torch.ops.cuda_acoustic\n"
