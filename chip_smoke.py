@@ -50,12 +50,22 @@ the conditioned misfits at the reference workload beside the plain L2
 --energy-weights; --invert-stf; --generate_data, then --para-json off the
 files it wrote and --resume).
 
+The examples' paths last: the forward with wavefield snapshots (the state
+copied on the card every save_every steps) bit for bit against its plain
+version, and examples/das_modeling_torch.py against the analytic solution
+(phase 26); the examples at full width (phase 27: overthrust_das_torch at
+its defaults, marmousi_scale_torch with all 24 shots at 814x2064,
+neural_reparam_fwi_torch at its grid, make_figures_torch in full); and
+`invert --optimizer ondevice` at the reference workload (phase 28); each
+with exact launch counts and no plain call.
+
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 3,7,8,9,10,20   # those phases only
     python3 chip_smoke.py --phases 17,21           # the acoustic pair
     python3 chip_smoke.py --phases 22              # the shot sums
     python3 chip_smoke.py --phases 23              # acoustic points
     python3 chip_smoke.py --phases 24,25           # rock scale, conditioned
+    python3 chip_smoke.py --phases 26,27,28        # the examples' paths
 
 Needs one CUDA device and nvcc; exits nonzero, printing no result, without
 them.  Imports neither jax nor sep2023_tpu.  The last line of standard
@@ -102,6 +112,10 @@ from sep2023_tpu_torch.testing import max_rel as rel_err
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "examples"))
 import das_fwi_torch  # noqa: E402  (examples/das_fwi_torch.py)
+import das_modeling_torch  # noqa: E402
+import marmousi_scale_torch  # noqa: E402
+import neural_reparam_fwi_torch  # noqa: E402
+import overthrust_das_torch  # noqa: E402
 
 TOL = 2e-5          # per channel, relative to the channel max (f32 kernel
                     # vs f32 plain; the JAX package's Pallas-vs-XLA bound)
@@ -669,7 +683,8 @@ def _invert(label, argv, cfg, rs, S, niter, *, exp=None, data_forwards=1,
 
 
 def phase_invert_main_path(cfg, rs):
-    """`invert --niter 3` at the CLI defaults (the reference workload)."""
+    """`invert --niter 3` at the CLI defaults (the reference workload):
+    (counts, seconds an evaluation)."""
     counts, out, n, _ = _invert("[11 main path] invert --niter 3:", [], cfg,
                                 rs, 19, 3)
     per_eval = out["seconds"] / n
@@ -677,7 +692,7 @@ def phase_invert_main_path(cfg, rs):
     print(f"[11 main path] {out['seconds']:.3f} s in L-BFGS-B, "
           f"{per_eval:.3f} s per gradient evaluation, "
           f"{cells / per_eval / 1e9:.2f} GCell/s gradient")
-    return counts
+    return counts, per_eval
 
 
 def _kernel_case(label, cfg, rs, inputs, seed=7):
@@ -2046,13 +2061,251 @@ def phase_shot_sums(dev, reps=100):
     return numbers
 
 
+# examples/das_modeling_torch.py's benchmark: 208x288 padded, nt=700, one
+# shot and one receiver, a snapshot every 25 steps.
+SNAPSHOT_EVERY = 25
+
+
+def _snapshots_vs_plain(label, cfg, rs, inputs, save_every, reps=3):
+    """snapshots_cuda_plan against snapshots_plain on the same card: data
+    and every snapshot bit for bit, launches_forward of the snapshot config
+    a call; both timed by CUDA events.  Returns the numbers of the kernels
+    line."""
+    plan = cuda_engine.plan_for(cfg, rs)
+    cfg_s = cuda_engine.propagator.snapshot_config(cfg, save_every)
+    reset_counts()
+    data, snaps = cuda_engine.snapshots_cuda_plan(plan, *inputs,
+                                                  save_every=save_every)
+    torch.cuda.synchronize()
+    counts, plain_calls = read_counts()
+    check_counts(label, counts, {"LAUNCHES": forward_launches(cfg_s),
+                                 "LAUNCHES_FIBER": int(
+                                     isinstance(rs, cuda_engine.FiberSurvey))},
+                 plain_calls)
+    ref_data, ref_snaps = cuda_engine.snapshots_plain(cfg, rs, *inputs,
+                                                      save_every)
+    check(snaps.shape == ref_snaps.shape and torch.equal(snaps, ref_snaps)
+          and torch.equal(data, ref_data),
+          f"{label}: the snapshots or the data differ from plain")
+    check(float(ref_snaps.abs().max()) > 0, f"{label}: zero snapshots")
+    ms = cuda_ms(lambda: cuda_engine.snapshots_cuda_plan(
+        plan, *inputs, save_every=save_every), reps)
+    # the plain version has just run: no warm-up
+    plain_ms = cuda_ms(lambda: cuda_engine.snapshots_plain(
+        cfg, rs, *inputs, save_every), 1, warm=False)
+    S = inputs[3].shape[0]
+    b_ms, b_by = bound(cfg_s, S, FWD_OPS_PER_CELL_STEP,
+                       nbytes(*inputs[:3]) + S * cfg_s.nt * 4
+                       + nbytes(data, snaps))
+    print(f"{label} {tuple(snaps.shape)} snapshots and data "
+          f"{tuple(data.shape)} bitwise equal to plain; launches "
+          f"{counts['LAUNCHES']} = launches_forward of nt={cfg_s.nt}; "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} "
+          f"ms ({b_by})")
+    return dict(max_abs_err=0.0, max_rel_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_snapshots(dev):
+    """The snapshot route on the card: against its plain version at
+    das_modeling_torch's shapes and at the reference workload (a snapshot
+    every 100 steps, 19 shots), then das_modeling_torch's
+    solver_vs_analytic as a main path: nt launches of the snapshot config,
+    no plain call, vz correlated with the analytic solution."""
+    cfg, plan, inputs = das_modeling_torch.solver_problem(dev)
+    numbers = _snapshots_vs_plain(
+        "[26 snapshots vs plain] das_modeling_torch, 208x288, nt=700, every "
+        f"{SNAPSHOT_EVERY}:", cfg, plan.rs, inputs, SNAPSHOT_EVERY)
+    ref_cfg, ref_rs, ref_inputs = reference_problem(dev)
+    _snapshots_vs_plain("[26 snapshots vs plain] reference workload, every "
+                        "100:", ref_cfg, ref_rs, ref_inputs, 100, reps=1)
+    torch.cuda.empty_cache()
+    cfg_s = cuda_engine.propagator.snapshot_config(cfg, SNAPSHOT_EVERY)
+    with tempfile.TemporaryDirectory() as d:
+        reset_counts()
+        t0 = time.perf_counter()
+        out = das_modeling_torch.solver_vs_analytic(d, "cuda")
+        seconds = time.perf_counter() - t0
+        counts, plain_calls = read_counts()
+    check_counts("[26 main path] das_modeling_torch", counts,
+                 {"LAUNCHES": forward_launches(cfg_s)}, plain_calls)
+    check(out["corr"] > 0.98, f"vz correlation {out['corr']}")
+    print(f"[26 main path] das_modeling_torch.solver_vs_analytic: vz vs "
+          f"analytic Uz correlation {out['corr']:.6f}, "
+          f"{out['snaps_vz'].shape[0]} snapshots; launches "
+          f"{counts['LAUNCHES']} = launches_forward of nt={cfg_s.nt}, as "
+          f"expected; plain calls 0; {seconds:.3f} s")
+    return dict(counts=counts, numbers=numbers)
+
+
+def _example(label, run, cfg, shots, *, chunks=1, data_forwards=1,
+             fiber=False, extra=None):
+    """An example's main through `run()` with the counts set to 0 just
+    before and read just after: an evaluation is a forward with strips and
+    a backward a chunk, the observed data data_forwards forwards a chunk
+    (extra: the launches its other work adds); no plain call.  Prints the
+    seconds an evaluation, the gradient GCell/s and the peak memory beside
+    what auto_shot_chunk assumes for the shots in flight.  Returns (the
+    example's result, counts, evaluations)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out, n, seconds = run()
+    torch.cuda.synchronize()
+    counts, plain_calls = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    fwd = forward_launches(cfg)
+    bwd = backward_launches(cfg, None)
+    want = {"LAUNCHES": fwd * chunks * (data_forwards + n),
+            "LAUNCHES_STRIPS": fwd * chunks * n,
+            "LAUNCHES_BWD": bwd * chunks * n}
+    if fiber:
+        want["LAUNCHES_FIBER"] = chunks * (data_forwards + n)
+    for k, v in (extra or {}).items():
+        want[k] = want.get(k, 0) + v
+    check_counts(label, counts, want, plain_calls)
+    in_flight = -(-shots // chunks)
+    per_eval = seconds / n
+    cells = cfg.nz * cfg.nx * (cfg.nt - 1) * shots
+    print(f"{label} {n} evaluations, launches "
+          f"{ {k: v for k, v in counts.items() if v} } = forward {fwd} x "
+          f"{chunks} chunk(s) x ({data_forwards} + {n}), backward {bwd} x "
+          f"{chunks} x {n}, as expected; plain calls 0; {per_eval:.3f} s "
+          f"an evaluation, {cells / per_eval / 1e9:.2f} GCell/s gradient; "
+          f"peak memory {peak / 1e9:.3f} GB, auto_shot_chunk assumes "
+          f"{assumed_bytes(cfg, in_flight) / 1e9:.3f} GB for {in_flight} "
+          "shots in flight")
+    return out, counts, n
+
+
+def phase_examples(dev):
+    """The examples at full width on the card, each a main path with exact
+    launch counts and no plain call: overthrust_das_torch at its defaults
+    (the weighted spline cable as points), marmousi_scale_torch at its
+    grid with all 24 shots in chunks of 2 (n_iters cut to 1),
+    neural_reparam_fwi_torch at its grid (n_steps cut to 10) and
+    make_figures_torch in full."""
+    import make_figures_torch  # matplotlib, for this phase alone
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as d:
+        # (a) overthrust_das_torch: 8 shots, 92x132, nt=501
+        cfg, survey, *_ = overthrust_das_torch.problem()
+
+        def overthrust():
+            m = overthrust_das_torch.main(d, device="cuda")
+            return m, m["n_evals"], m["seconds"]
+
+        m, counts, n = _example("[27 overthrust_das_torch]", overthrust,
+                                cfg, survey.n_shots, fiber=True)
+        check(m["misfit1"] < m["misfit0"],
+              f"overthrust misfit {m['misfit0']} -> {m['misfit1']}")
+        print(f"[27 overthrust_das_torch] misfit {m['misfit0']:.6e} -> "
+              f"{m['misfit1']:.6e} in {m['nit']} iterations, falling; "
+              f"illuminated-zone |vp err| {m['zone_err0']:.2f} -> "
+              f"{m['zone_err1']:.2f} m/s")
+        runs["overthrust"] = counts
+        torch.cuda.empty_cache()
+
+        # (b) marmousi_scale_torch: 814x2064, nt=2001, 24 shots, chunks of 2
+        cfg, survey, *_ = marmousi_scale_torch.problem()
+        chunks = len(parallel._chunks(survey.n_shots, 2))
+
+        def marmousi():
+            m = marmousi_scale_torch.main(d, n_iters=1, device="cuda")
+            return m, m["n_evals"], m["seconds"]
+
+        m, counts, n = _example("[27 marmousi_scale_torch]", marmousi, cfg,
+                                survey.n_shots, chunks=chunks)
+        check(survey.n_shots == 24 and cfg.nz == 814 and cfg.nx == 2064,
+              "Marmousi scale is 24 shots at 814x2064")
+        check(m["misfit1"] < m["misfit0"],
+              f"Marmousi misfit {m['misfit0']} -> {m['misfit1']}")
+        print(f"[27 marmousi_scale_torch] 24 shots at 814x2064 in {chunks} "
+              f"chunks of 2: misfit {m['misfit0']:.6e} -> "
+              f"{m['misfit1']:.6e} in {m['nit']} iterations, falling; "
+              f"in-anomaly |vp err| {m['anom_err0']:.2f} -> "
+              f"{m['anom_err1']:.2f} m/s; observed data "
+              f"{m['seconds_data']:.3f} s")
+        runs["marmousi"] = counts
+        torch.cuda.empty_cache()
+
+        # (c) neural_reparam_fwi_torch: 165x265, nt=1001, 19 shots
+        cfg, survey, *_ = neural_reparam_fwi_torch.problem(dev)
+
+        def neural():
+            m = neural_reparam_fwi_torch.main(d, n_steps=10, device="cuda")
+            return m, len(m["losses"]), m["seconds"]
+
+        m, counts, n = _example("[27 neural_reparam_fwi_torch]", neural,
+                                cfg, survey.n_shots)
+        losses = m["losses"]
+        check(np.isfinite(losses).all() and losses[-1] < losses[0],
+              f"neural losses {losses}")
+        print(f"[27 neural_reparam_fwi_torch] Adam, 10 steps: loss "
+              f"{losses[0]:.6e} -> {losses[-1]:.6e}, falling; mean |vp err| "
+              f"{m['err0']:.2f} -> {m['err1']:.2f} m/s")
+        runs["neural"] = counts
+        torch.cuda.empty_cache()
+
+        # (d) make_figures_torch in full: the gather's forward, the
+        # snapshot movie, `rtm` (acoustic, one chunk) and 15 L-BFGS-B
+        # iterations on the ett, vx and vz misfit
+        cfg, survey, _, _ = cli.benchmark_problem(nz=64, nx=128, nt=501,
+                                                  npml=24, device=dev)
+        ac_nt = 800
+        snap_cfg = cuda_engine.propagator.snapshot_config(cfg, 25)
+
+        def figures():
+            t0 = time.perf_counter()
+            m = make_figures_torch.main([os.path.join(d, "figs")])
+            return m, m["n_evals"], time.perf_counter() - t0
+
+        m, counts, n = _example(
+            "[27 make_figures_torch]", figures, cfg, survey.n_shots,
+            extra={"LAUNCHES": forward_launches(snap_cfg),
+                   "LAUNCHES_AC": 3 * ac_nt, "LAUNCHES_AC_STRIPS": ac_nt,
+                   "LAUNCHES_AC_BWD": ac_nt, "LAUNCHES_AC_IMG": ac_nt})
+        check(len(m["figures"]) == 4
+              and all(os.path.getsize(f) > 0 for f in m["figures"]),
+              f"figures {m['figures']}")
+        check(m["misfit1"] < m["misfit0"],
+              f"make_figures misfit {m['misfit0']} -> {m['misfit1']}")
+        print(f"[27 make_figures_torch] {len(m['figures'])} figures "
+              f"written; misfit {m['misfit0']:.6e} -> {m['misfit1']:.6e}, "
+              f"falling (seconds an evaluation include the gather, the "
+              f"snapshots, rtm and the plots)")
+        runs["figures"] = counts
+    return runs
+
+
+def phase_invert_ondevice(cfg, rs, scipy_per_eval):
+    """`invert --optimizer ondevice --niter 3` at the CLI defaults (the
+    reference workload): the on-device L-BFGS's evaluations with exact
+    launch counts, the loss falling, its seconds an evaluation beside
+    phase 11's scipy L-BFGS-B."""
+    label = "[28 main path] invert --optimizer ondevice --niter 3:"
+    counts, out, n, _ = _invert(label, ["--optimizer", "ondevice"], cfg, rs,
+                                19, 3)
+    per_eval = out["seconds"] / n
+    cells = 165 * 265 * 1500 * 19
+    beside = ("not run in this call" if scipy_per_eval is None
+              else f"{scipy_per_eval:.3f} s")
+    print(f"[28 main path] {n} evaluations in 3 iterations, "
+          f"{out['seconds']:.3f} s in the on-device L-BFGS, {per_eval:.3f} s "
+          f"an evaluation ({cells / per_eval / 1e9:.2f} GCell/s gradient); "
+          f"phase 11's scipy L-BFGS-B: {beside} an evaluation")
+    return counts
+
+
 def kernel_record(results):
     """The JSON record of every kernel.  `launches` are the counts of the
     kernel's main path, read just after it ran from counts set to 0 just
     before; every other number was measured in this run at that main path's
     shapes: the reference workload (K1, K1-strips, K2; K5, K5-strips, K6 and
     its imaging variant), the acquisition of examples/das_fwi_torch.py
-    (K1-fiber), one shot of `invert` at 560x720, nt=2001 and one chunk of 2
+    (K1-fiber), examples/das_modeling_torch.py's benchmark (K1 with
+    snapshots), one shot of `invert` at 560x720, nt=2001 and one chunk of 2
     shots at 814x2064, nt=2001 (K3, K4), `forward --physics acoustic` at
     560x720, nt=2001, 64 shots and the one-shot acoustic gradients at
     560x720, nt=1001 and 814x2064, nt=601 (K7, K8); the shot sums alone at
@@ -2085,10 +2338,15 @@ def kernel_record(results):
                    plain_ms=plain_ms, bound_ms=k1_bound, bound_by=k1_by)),
         entry("elastic_forward with boundary strips (fwd_step_kernel: nt-1 "
               "fused steps recording inside, then its record-only launch)",
-              fwd_src, fused + "875", r[11]["LAUNCHES_STRIPS"],
+              fwd_src, fused + "875", r[11][0]["LAUNCHES_STRIPS"],
               r[7]),
         entry("elastic_backward (fused reverse step, shot sum)", bwd_src,
-              fused + "1186", r[11]["LAUNCHES_BWD"], r[8]),
+              fused + "1186", r[11][0]["LAUNCHES_BWD"], r[8]),
+        entry("elastic_forward with wavefield snapshots (fwd_step_kernel: "
+              "nt-1 fused steps recording inside, the state copied on the "
+              "card every 25 steps, then its record-only launch), "
+              "examples/das_modeling_torch.py", fwd_src, fused + "875",
+              r[26]["counts"]["LAUNCHES"], r[26]["numbers"]),
         entry("elastic_forward with point receivers and boundary strips "
               "(fwd_step_kernel: nt-1 fused steps recording the points by "
               "tile, then its record-only launch), the acquisition of "
@@ -2173,7 +2431,7 @@ def kernel_record(results):
     sums = r[22]
     for name, source, replaces, bwd_launches, nt in (
             ("sum_shots_kernel, reference workload", bwd_src,
-             fused + "1186", r[11]["LAUNCHES_BWD"], 1501),
+             fused + "1186", r[11][0]["LAUNCHES_BWD"], 1501),
             ("sum_shots_kernel, 814x2064", bwd_src, stream + "1794",
              r[15][0]["LAUNCHES_BWD"], 2001),
             ("ac_sum_shots_kernel, reference workload", ac_bwd_src,
@@ -2233,6 +2491,10 @@ def main(argv=None):
         (23, lambda: phase_acoustic_points(dev)),
         (24, lambda: phase_rock(dev)),
         (25, lambda: phase_conditioned(ref_cfg, ref_rs)),
+        (26, lambda: phase_snapshots(dev)),
+        (27, lambda: phase_examples(dev)),
+        (28, lambda: phase_invert_ondevice(
+            ref_cfg, ref_rs, results[11][1] if 11 in results else None)),
         (6, lambda: phase_profile(dev)),
     ]
     only = {int(k) for k in args.phases.split(",") if k.strip()}

@@ -14,14 +14,17 @@ PyTorch counterpart of `sep2023_tpu/cli.py`.  `forward` runs both physics
 acoustic time-derivative one by default, the elastic zero-lag one).
 `invert` takes every option of the JAX package's on one device: the
 conditioned misfits, the multiscale stage loop with the per-stage source
-update, the joint source inversion, resume, and the reference's JSON and
-scratch files.  Shot sharding (`--n-devices` > 1, ROADMAP M10) and the
-on-device optimizer (`--optimizer ondevice`, M11) raise
-NotImplementedError, and `bench` comes with a later slice (M8).
-`--device cuda` (the default) runs the CUDA kernels and raises for work
-they cannot take; `--device cpu` runs the plain PyTorch versions (and,
-with `--x64`, float64).  Models are synthesized (models.py) because the
-reference git-ignores its Models/*.txt grids.
+update, the joint source inversion, resume, the reference's JSON and
+scratch files, and the on-device L-BFGS (`--optimizer ondevice`).  Shot
+sharding (`--n-devices` > 1, ROADMAP M10) raises NotImplementedError, and
+`bench` is the work of the port's benchmark (M8).  `--device cuda` (the
+default) runs the CUDA kernels and raises for work they cannot take;
+`--device cpu` runs the plain PyTorch versions (and, with `--x64`,
+float64).  `invert --engine` parses as in the JAX CLI and maps onto
+--device: auto follows it, pallas is the CUDA kernels and needs --device
+cuda, xla the plain version and needs --device cpu.  Models are
+synthesized (models.py) because the reference git-ignores its
+Models/*.txt grids.
 """
 from __future__ import annotations
 
@@ -204,16 +207,28 @@ def build_stage_loss(cfg, survey, geoms, *, use_kernels, shot_chunk,
 
 
 def _reject_unported(args):
-    """Options of the JAX package's `invert` that the port does not have
-    yet raise, naming their ROADMAP item."""
-    unported = [
-        (args.n_devices > 1, "--n-devices", "M10"),
-        (args.optimizer == "ondevice", "--optimizer ondevice", "M11"),
-    ]
-    for given, flag, item in unported:
-        if given:
-            raise NotImplementedError(
-                f"invert {flag} is not ported yet (ROADMAP {item})")
+    """The one option of the JAX package's `invert` that the port does not
+    have yet, shot sharding over several devices, raises, naming its
+    ROADMAP item."""
+    if args.n_devices > 1:
+        raise NotImplementedError(
+            "invert --n-devices > 1 is not ported yet (ROADMAP M10)")
+
+
+# The device each --engine runs on: the JAX package's Pallas kernels are
+# the CUDA kernels here, its XLA engine the plain PyTorch version.
+ENGINE_DEVICE = {"pallas": "cuda", "xla": "cpu"}
+
+
+def _check_engine(args):
+    """--engine as the JAX CLI spells it, held to --device: auto follows
+    --device, pallas (the CUDA kernels) needs --device cuda, xla (the plain
+    version) --device cpu; any other pair raises rather than run an engine
+    the two flags do not agree on."""
+    want = ENGINE_DEVICE.get(args.engine)
+    if want is not None and args.device != want:
+        raise ValueError(f"--engine {args.engine} runs on --device {want}, "
+                         f"not --device {args.device}")
 
 
 def shot_weights(survey, *, device, dtype):
@@ -297,8 +312,12 @@ def cmd_invert(args):
     model/gradient snapshots under --exp-name.  Returns a summary dict
     (evaluations and iterations of all stages, final misfit, seconds in
     the optimizer, shots per gradient chunk, stages, forwards of
-    --src-update), or None after --generate_data."""
+    --src-update), or None after --generate_data.  --optimizer ondevice
+    takes the on-device L-BFGS (optimize.lbfgs_on_device) in place of
+    scipy's, with the JAX package's loss.txt lines and one model snapshot a
+    stage."""
     _reject_unported(args)
+    _check_engine(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a CUDA device; --device cpu "
@@ -465,7 +484,6 @@ def cmd_invert(args):
     iters_per_stage = max(1, args.niter // len(stages))
     iter_offset = n_evals = nit = src_updates = 0
     seconds = 0.0
-    res = None
     for istage, corners in enumerate(stages):
         if args.src_update and not args.invert_stf:
             # in-loop spectral (Wiener) source re-estimation from the
@@ -483,28 +501,51 @@ def cmd_invert(args):
         if corners is not None:
             print(f"multiscale stage {istage + 1}/{len(stages)}: "
                   f"band {corners}")
-        obj = optimize.ScipyObjective(
-            make_param_loss(corners), start_params,
-            bounds=({k: bounds[k] for k in invert_names} if bounds
-                    else None),
-            aux=(stf, obs), device=device, dtype=dtype)
-        logger = optimize.InversionLogger(
-            os.path.join(args.exp_name, "Results"), obj,
-            start_iter=iter_offset, save_mat=args.save_mat)
-        print(f"L-BFGS-B: {iters_per_stage} iterations, head={args.head}")
+        stage_bounds = ({k: bounds[k] for k in invert_names} if bounds
+                        else None)
+        rdir = os.path.join(args.exp_name, "Results")
         t0 = time.perf_counter()
-        res = optimize.lbfgsb(obj, maxiter=iters_per_stage, callback=logger)
+        if args.optimizer == "ondevice":
+            print(f"on-device L-BFGS: {iters_per_stage} iterations, "
+                  f"head={args.head}")
+            params_out, hist = optimize.lbfgs_on_device(
+                make_param_loss(corners), start_params, iters_per_stage,
+                bounds=stage_bounds, aux=(stf, obs), device=device,
+                dtype=dtype)
+            os.makedirs(rdir, exist_ok=True)
+            with open(os.path.join(rdir, "loss.txt"), "a") as fp:
+                for j, v in enumerate(hist):
+                    fp.write(f"{iter_offset + j} {v}\n")
+            iter_offset += len(hist)
+            start_params = {k: v.cpu().numpy()
+                            for k, v in params_out.items()}
+            np.savez(os.path.join(rdir, f"model_{iter_offset:04d}.npz"),
+                     **start_params)
+            stage_evals, stage_nit, misfit = hist.n_evals, len(hist), hist[-1]
+        else:
+            obj = optimize.ScipyObjective(
+                make_param_loss(corners), start_params, bounds=stage_bounds,
+                aux=(stf, obs), device=device, dtype=dtype)
+            logger = optimize.InversionLogger(rdir, obj,
+                                              start_iter=iter_offset,
+                                              save_mat=args.save_mat)
+            print(f"L-BFGS-B: {iters_per_stage} iterations, "
+                  f"head={args.head}")
+            res = optimize.lbfgsb(obj, maxiter=iters_per_stage,
+                                  callback=logger)
+            iter_offset = logger.it
+            start_params = {k: v.cpu().numpy()
+                            for k, v in obj.unpack(res.x).items()}
+            stage_evals, stage_nit, misfit = obj.n_evals, int(res.nit), \
+                float(res.fun)
         t_stage = time.perf_counter() - t0
         seconds += t_stage
-        n_evals += obj.n_evals
-        nit += int(res.nit)
-        iter_offset = logger.it
-        start_params = {k: v.cpu().numpy()
-                        for k, v in obj.unpack(res.x).items()}
+        n_evals += stage_evals
+        nit += stage_nit
         cells = cfg.nz * cfg.nx * (cfg.nt - 1) * S
-        per_eval = t_stage / max(obj.n_evals, 1)
-        print(f"stage misfit {res.fun:.6e} after {res.nit} iterations "
-              f"({obj.n_evals} evaluations, {per_eval:.3f} s each, "
+        per_eval = t_stage / max(stage_evals, 1)
+        print(f"stage misfit {misfit:.6e} after {stage_nit} iterations "
+              f"({stage_evals} evaluations, {per_eval:.3f} s each, "
               f"{cells / per_eval / 1e9:.2f} GCell/s gradient)")
 
     if args.scratch_dir:
@@ -522,7 +563,7 @@ def cmd_invert(args):
             sio.write_shots_survey(os.path.join(args.scratch_dir, name), d,
                                    survey)
         print(f"scratch dumps written to {args.scratch_dir}")
-    return {"n_evals": n_evals, "nit": nit, "misfit": float(res.fun),
+    return {"n_evals": n_evals, "nit": nit, "misfit": misfit,
             "seconds": seconds, "shot_chunk": args.shot_chunk,
             "stages": len(stages), "src_updates": src_updates}
 
@@ -776,10 +817,16 @@ def main(argv=None):
     i.add_argument("--save-mat", action="store_true",
                    help="also write reference-format .mat snapshots per "
                         "iteration (Main-001:144-150)")
-    # the on-device optimizer and shot sharding are not ported yet: each
-    # raises NotImplementedError naming its ROADMAP item
+    i.add_argument("--engine", default="auto",
+                   choices=("auto", "xla", "pallas"),
+                   help="the JAX CLI's engine choice, held to --device: "
+                        "auto follows it, pallas = the CUDA kernels "
+                        "(--device cuda), xla = the plain PyTorch version "
+                        "(--device cpu)")
     i.add_argument("--optimizer", default="scipy",
-                   choices=("scipy", "ondevice"))
+                   choices=("scipy", "ondevice"),
+                   help="scipy L-BFGS-B, or the on-device L-BFGS with a "
+                        "zoom line search (optax.lbfgs's algorithm)")
     i.add_argument("--n-devices", type=int, default=0,
                    help="1 device only (shot sharding is ROADMAP M10)")
     i.set_defaults(fn=cmd_invert)

@@ -11,6 +11,7 @@ import torch
 
 from sep2023_tpu_torch.acoustic import AcGeom
 from sep2023_tpu_torch.config import Survey
+from sep2023_tpu_torch.decoder import Decoder
 from sep2023_tpu_torch.ops import cuda_engine
 from sep2023_tpu_torch.propagator import ShotGeom
 
@@ -73,3 +74,21 @@ def fiber_survey_from_jax(fs) -> cuda_engine.FiberSurvey:
     order, so data compare without a permutation."""
     rec_z = [fs.rowmaps[k][x] for k, x in zip(fs.rec_layer, fs.rec_x)]
     return cuda_engine.make_fiber_survey(rec_z, fs.rec_x, fs.weights)
+
+
+@torch.no_grad()
+def decoder_from_flax(params, latent, scale: float = 300.0, *,
+                      device="cpu") -> Decoder:
+    """The port's Decoder computing what the flax decoder of
+    `examples/neural_reparam_fwi.py` computes with its variables `params`
+    ({'params': {'Conv_0': {'kernel', 'bias'}, ...}}, arrays read as
+    numpy) and its latent (h, w, width): kernels HWIO -> OIHW, the latent
+    channels first, float32."""
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32,
+                               device=device)
+    dec = Decoder(t(latent).permute(2, 0, 1).contiguous(), scale)
+    for i, conv in enumerate(dec.convs):
+        p = params["params"][f"Conv_{i}"]
+        conv.weight.copy_(t(p["kernel"]).permute(3, 2, 0, 1))
+        conv.bias.copy_(t(p["bias"]))
+    return dec

@@ -534,7 +534,11 @@ extern "C" int elastic_forward_plan(int* out) {
 // validated by the caller; tiles other than the kernel's return
 // kErrTileMismatch before any launch.  nt launches for nt >= 2 (none
 // below): nt-1 fused steps, each recording the state it reads, and the
-// record-only launch of index nt-1.
+// record-only launch of index nt-1.  Snapshots: with save_every > 0,
+// after the step that ends at time (k + 1) save_every, a copy of that
+// state's buffer (5, S, nz, nx) into snaps[k], on the same stream, for
+// every such time up to nt-1 (snaps holds (nt-1) / save_every of them);
+// with snaps null or save_every 0 nothing is copied.
 extern "C" int elastic_forward(const float* mats, const float* prof_z,
                                const float* prof_x, const float* stf,
                                const int* src_z, const int* src_x,
@@ -542,7 +546,8 @@ extern "C" int elastic_forward(const float* mats, const float* prof_z,
                                const int* rec_x, const float* rec_w,
                                const int* tile_ptr, const int* tile_rec,
                                float* fields, float* psi, float* data,
-                               float* strips, int S, int nz, int nx, int nt,
+                               float* strips, float* snaps, int save_every,
+                               int S, int nz, int nx, int nt,
                                int rec_row, int rec_x0, int n_rec,
                                int ett_mode, int tile_z, int tile_x,
                                int npml, int n_bnd, int band_z_lo,
@@ -558,12 +563,24 @@ extern "C" int elastic_forward(const float* mats, const float* prof_z,
            Band{band_z_lo, band_z_hi}, Band{band_x_lo, band_x_hi}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((nx + TX - 1) / TX, (nz + TZ - 1) / TZ, S);
+  const size_t state_n = static_cast<size_t>(kNumFields) * S * nz * nx;
   for (int it = 0; it < nt; ++it) {
     // launch nt-1 records index nt-1 and steps no further
     fwd_step_kernel<<<grid, kTileThreads, 0, st>>>(p, it, it & 1,
                                                    it == nt - 1);
-    const cudaError_t err = cudaGetLastError();
+    cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
+    // the state after it + 1 steps lies in buffer (it + 1) & 1 until the
+    // launch after next overwrites it; the copy is ordered before that
+    const int t = it + 1;
+    if (snaps != nullptr && save_every > 0 && t < nt &&
+        t % save_every == 0) {
+      err = cudaMemcpyAsync(snaps + (t / save_every - 1) * state_n,
+                            fields + (t & 1) * state_n,
+                            state_n * sizeof(float),
+                            cudaMemcpyDeviceToDevice, st);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
   }
   return 0;
 }

@@ -102,7 +102,7 @@ def load() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.elastic_forward.argtypes = [P] * 16 + [I] * 16 + [F] * 4 + [P]
+        lib.elastic_forward.argtypes = [P] * 17 + [I] * 17 + [F] * 4 + [P]
         lib.elastic_forward.restype = I
         lib.elastic_backward.argtypes = [P] * 23 + [I] * 16 + [F, F, P]
         lib.elastic_backward.restype = I

@@ -8,8 +8,10 @@ Counterpart of `sep2023_tpu/ops/pallas_engine.py`: `plan_fast_path` and
 `forward_pallas_plan`/`_run_forward` (K1), `backward_cuda_plan` of
 `_run_backward` (K2), and `propagate_cuda_plan`, a
 `torch.autograd.Function`, of `propagate_pallas_plan` with
-`_pp_fwd`/`_pp_bwd`.  Every entry takes a plan; `plan_for(cfg, rs)` gives
-the plan of a survey already in hand.
+`_pp_fwd`/`_pp_bwd`, and `snapshots_cuda_plan` of
+`propagator.propagate_snapshots` (the forward kernel's state copied on the
+card every save_every steps).  Every entry takes a plan; `plan_for(cfg,
+rs)` gives the plan of a survey already in hand.
 Receivers are a `RowSurvey` (one contiguous row) or a `FiberSurvey`
 (arbitrary points, optionally with directional weights).  The JAX package's
 K-layer row maps and its transposed plan for receiver columns are TPU
@@ -90,7 +92,7 @@ PLAIN_CALLS = {"forward_plain": 0, "forward_plain_strips": 0,
                "forward_plain_acoustic_strips": 0,
                "backward_plain_acoustic": 0,
                "reconstruct_plain_acoustic": 0, "rtm_image_time_plain": 0,
-               "source_illumination": 0}
+               "source_illumination": 0, "snapshots_plain": 0}
 
 # Planes of nz x nx a shot, as the wrappers allocate them: the fields twice
 # (the kernels' double buffer, the forward's and the backward's), the
@@ -670,7 +672,6 @@ def forward_cuda_plan(plan: FastPlan, lam, mu, rho, stf, src_z, src_x, rxz,
     CPU tensors run the plain versions; CUDA tensors run the kernel, at any
     grid size: nt launches (`launches_forward`), the last one recording
     only."""
-    global LAUNCHES, LAUNCHES_STRIPS, LAUNCHES_FIBER
     cfg, rs = plan.cfg, plan.rs
     src = _check_inputs(plan, lam, mu, rho, stf, src_z, src_x, rxz)
     if save_strips:
@@ -678,6 +679,56 @@ def forward_cuda_plan(plan: FastPlan, lam, mu, rho, stf, src_z, src_x, rxz,
     if lam.device.type == "cpu":
         plain = forward_plain_strips if save_strips else forward_plain
         return plain(cfg, rs, lam, mu, rho, stf, *src)
+    data, strips, _, fields = _forward_kernel(plan, cfg, lam, mu, rho, stf,
+                                              src, save_strips=save_strips)
+    if save_strips:
+        # the final fields alone, so the double buffer is freed here
+        return data, strips, fields[(cfg.nt - 1) % 2].clone()
+    return data
+
+
+@torch.no_grad()
+def snapshots_plain(cfg: SimConfig, rs, lam, mu, rho, stf, src_z, src_x, rxz,
+                    save_every: int):
+    """The plain version of the snapshot route:
+    propagator.propagate_snapshots_shots on the survey."""
+    PLAIN_CALLS["snapshots_plain"] += 1
+    geoms = _geoms(cfg, rs, src_z, src_x, rxz, lam.device, lam.dtype)
+    return propagator.propagate_snapshots_shots(cfg, lam, mu, rho, stf,
+                                                geoms, save_every)
+
+
+def snapshots_cuda_plan(plan: FastPlan, lam, mu, rho, stf, src_z, src_x,
+                        rxz, save_every: int = 10):
+    """The forward with wavefield snapshots under a FastPlan
+    (`propagator.propagate_snapshots` of every shot): (data (S, 4, n_rec,
+    used + 1), snaps (n_chunks, 5, S, nz, nx) in Fields order), n_chunks =
+    (nt-1) // save_every, used = n_chunks save_every, snaps[k] the fields
+    after (k + 1) save_every steps.  Inputs as for forward_cuda_plan, stf
+    (S, nt) of the plan's nt.
+
+    CPU tensors run snapshots_plain; CUDA tensors run the forward kernel
+    over used steps, `launches_forward` of
+    `propagator.snapshot_config(cfg, save_every)` launches, each snapshot a
+    device-to-device copy of the step's state between launches."""
+    cfg_s = propagator.snapshot_config(plan.cfg, save_every)
+    src = _check_inputs(plan, lam, mu, rho, stf, src_z, src_x, rxz)
+    if lam.device.type == "cpu":
+        return snapshots_plain(plan.cfg, plan.rs, lam, mu, rho, stf, *src,
+                               save_every)
+    data, _, snaps, _ = _forward_kernel(plan, cfg_s, lam, mu, rho,
+                                        stf[:, :cfg_s.nt].contiguous(), src,
+                                        save_every=save_every)
+    return data, snaps
+
+
+def _forward_kernel(plan: FastPlan, cfg: SimConfig, lam, mu, rho, stf, src,
+                    save_strips=False, save_every=0):
+    """Launch elastic_forward on CUDA tensors over cfg.nt samples (the
+    plan's tables, cfg's nt): (data, strips or None, snapshots or None, the
+    double buffer of the fields (2, 5, S, nz, nx))."""
+    global LAUNCHES, LAUNCHES_STRIPS, LAUNCHES_FIBER
+    rs = plan.rs
     device = lam.device
     lib = _load(device)
     S = stf.shape[0]
@@ -693,9 +744,12 @@ def forward_cuda_plan(plan: FastPlan, lam, mu, rho, stf, src_z, src_x, rxz,
         fields = zeros(2, 5, S, cfg.nz, cfg.nx)
         psi = zeros(N_BAND_PLANES * S * band_floats(cfg))
         data = zeros(S, 4, rs.n_rec, cfg.nt)
-        strips = (torch.empty((S, cfg.nt - 1, 5, propagator.strip_len(cfg)),
-                              device=device, dtype=torch.float32)
+        empty = lambda *shape: torch.empty(shape, device=device,
+                                           dtype=torch.float32)
+        strips = (empty(S, cfg.nt - 1, 5, propagator.strip_len(cfg))
                   if save_strips else None)
+        snaps = (empty((cfg.nt - 1) // save_every, 5, S, cfg.nz, cfg.nx)
+                 if save_every else None)
         stream = torch.cuda.current_stream(device).cuda_stream
         one = np.float32(1.0)
         err = lib.elastic_forward(
@@ -703,7 +757,8 @@ def forward_cuda_plan(plan: FastPlan, lam, mu, rho, stf, src_z, src_x, rxz,
             stf.data_ptr(), *(t.data_ptr() for t in src),
             _ptr(rec_z), _ptr(rec_x), _ptr(rec_w), _ptr(tile_ptr),
             _ptr(tile_rec), fields.data_ptr(), psi.data_ptr(),
-            data.data_ptr(), _ptr(strips), S, cfg.nz, cfg.nx, cfg.nt,
+            data.data_ptr(), _ptr(strips), _ptr(snaps), save_every, S,
+            cfg.nz, cfg.nx, cfg.nt,
             *_row_args(rs), ETT_MODES[cfg.das_channel], *tile, cfg.npml,
             cfg.n_bnd_layers,
             *cpml_bands(cfg), ctypes.c_float(cfg.dt),
@@ -712,13 +767,11 @@ def forward_cuda_plan(plan: FastPlan, lam, mu, rho, stf, src_z, src_x, rxz,
             ctypes.c_float(one / np.float32(cfg.dx)), stream)
     _raise_on(lib, err, "elastic_forward")
     LAUNCHES += launches_forward(cfg)
-    if rec is not None and cfg.nt > 1:
-        LAUNCHES_FIBER += 1
     if save_strips:
         LAUNCHES_STRIPS += launches_forward(cfg)
-        # the final fields alone, so the double buffer is freed here
-        return data, strips, fields[(cfg.nt - 1) % 2].clone()
-    return data
+    if rec is not None and cfg.nt > 1:
+        LAUNCHES_FIBER += 1
+    return data, strips, snaps, fields
 
 
 def illumination_cuda_plan(plan: FastPlan, lam, mu, rho, stf, src_z, src_x,

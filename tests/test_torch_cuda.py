@@ -12,7 +12,9 @@ kernels on AC_TILE_EDGE_CASES, where the edges of their tiles can bite:
 data, strips and final fields bitwise equal to plain, gradients, a second
 backward bitwise, the reconstruction residual equal to plain's, the image
 and illumination.  The elastic illumination kernel (the fused step with its
-accumulator) bitwise equal to imaging.source_illumination.  A point table
+accumulator) bitwise equal to imaging.source_illumination, and the
+snapshot route (the forward copying its state every save_every steps)
+bitwise equal to its plain version.  A point table
 built for other tiles than the kernel's raises, in the elastic forward and
 backward and in the acoustic forward and backward.  The acoustic backward
 and its imaging variant with point receivers (the cotangents added inside
@@ -20,7 +22,7 @@ the fused reverse step): against plain, a second run bitwise, nt launches.
 The elastic and the acoustic shot sums (one body, csrc/shot_sum.cuh)
 bitwise equal to a plain loop over shots, with a per-shot stride that is a
 multiple of 4 floats and one that is not, and planes off 16-byte alignment.
-These mirror phases 3, 7-10, 12, 17, 19e and 20-23 of chip_smoke.py; they
+These mirror phases 3, 7-10, 12, 17, 19e, 20-23 and 26 of chip_smoke.py; they
 need a CUDA device and nvcc, and skip without a card:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -30,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from sep2023_tpu_torch import imaging
+from sep2023_tpu_torch import imaging, propagator
 from sep2023_tpu_torch.ops import _build, cuda_acoustic, cuda_engine
 from sep2023_tpu_torch.testing import (AC_CASES, AC_INTERIOR,
                                        AC_TILE_EDGE_CASES, DOT_TOL,
@@ -293,6 +295,32 @@ def test_tile_edges_forward_bitwise(cuda, case):
     plain = reconstruction_residual(cfg, cuda_engine.reconstruct_plain(
         cfg, rs, *args, final, strips), data)
     assert kern == plain, (kern, plain)
+
+
+@pytest.mark.parametrize("case", ["row", "points"])
+def test_snapshots_kernel_bitwise(cuda, case):
+    """The snapshot route on the card (elastic_forward copying the state
+    after every 25th step) against its plain version on the same card: the
+    data and every snapshot bit for bit, launches_forward of the snapshot
+    config, on a receiver row and on weighted point receivers."""
+    if case == "row":
+        cfg, rs, args = row_problem(*ROW_CASES["small exx"], device=cuda)
+    else:
+        cfg, rs, args = fiber_problem("arc weighted", device=cuda)
+    before = cuda_engine.LAUNCHES
+    data, snaps = cuda_engine.snapshots_cuda_plan(
+        cuda_engine.plan_for(cfg, rs), *args, save_every=25)
+    torch.cuda.synchronize()
+    cfg_s = propagator.snapshot_config(cfg, 25)
+    assert cuda_engine.LAUNCHES - before == \
+        cuda_engine.launches_forward(cfg_s) == cfg_s.nt
+    ref_data, ref_snaps = cuda_engine.snapshots_plain(cfg, rs, *args, 25)
+    assert snaps.shape == ref_snaps.shape == ((cfg.nt - 1) // 25, 5,
+                                              args[3].shape[0], cfg.nz,
+                                              cfg.nx)
+    assert float(ref_snaps.abs().max()) > 0
+    assert torch.equal(data, ref_data)
+    assert torch.equal(snaps, ref_snaps)
 
 
 @pytest.mark.parametrize("case", ["fiber points on tile edges",

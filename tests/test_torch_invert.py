@@ -9,10 +9,12 @@
 * cli invert --device cpu --x64 at the size of tests/test_cli.py's TINY:
   its first misfit equals the JAX package's `invert` on the same arguments
   to 1e-10, and its loss.txt trajectory to 1e-6; --generate_data, then a
-  run that loads the written data; the two options that are not ported
-  (shot sharding, the on-device optimizer) raise NotImplementedError
-  naming their ROADMAP items.  The other options of `invert` are held to
-  the JAX package in tests/test_torch_invert_*.py.
+  run that loads the written data; the one option that is not ported
+  (shot sharding) raises NotImplementedError naming its ROADMAP item.  The
+  other options of `invert` are held to the JAX package in
+  tests/test_torch_invert_*.py (--optimizer ondevice in
+  tests/test_torch_invert_ondevice.py, --engine in
+  tests/test_torch_invert_engine.py).
 """
 import os
 
@@ -221,7 +223,6 @@ def test_invert_generate_then_load(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--n-devices", "2"], "M10"),
-    (["--optimizer", "ondevice"], "M11"),
 ])
 def test_unported_invert_options_raise(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -47,7 +47,9 @@ def test_import_loads_no_jax():
     code = (
         "import sys\n"
         "sys.path.insert(0, 'examples')\n"
-        "import das_fwi_torch\n"
+        "import das_fwi_torch, das_modeling_torch, overthrust_das_torch, "
+        "marmousi_scale_torch, neural_reparam_fwi_torch, "
+        "make_figures_torch\n"
         "import sep2023_tpu_torch.analytic, sep2023_tpu_torch.das\n"
         "import sep2023_tpu_torch, sep2023_tpu_torch.cli, "
         "sep2023_tpu_torch.api, sep2023_tpu_torch.ops.cuda_engine, "
@@ -56,9 +58,10 @@ def test_import_loads_no_jax():
         "sep2023_tpu_torch.rock_physics, sep2023_tpu_torch.ops.signal, "
         "sep2023_tpu_torch.ops.misfit, sep2023_tpu_torch.parallel, "
         "sep2023_tpu_torch.testing, sep2023_tpu_torch.acoustic, "
-        "sep2023_tpu_torch.imaging, sep2023_tpu_torch.ops.cuda_acoustic\n"
+        "sep2023_tpu_torch.imaging, sep2023_tpu_torch.ops.cuda_acoustic, "
+        "sep2023_tpu_torch.decoder\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'sep2023_tpu', 'triton')]\n"
+        "('jax', 'jaxlib', 'sep2023_tpu', 'triton', 'optax', 'flax')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -74,7 +77,8 @@ def test_no_module_imports_jax():
              REPO / "chip_smoke.py",
              *sorted((REPO / "examples").glob("*_torch.py"))]
     assert len(files) > 20
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|sep2023_tpu)(\.|\s|$)",
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|sep2023_tpu|optax|flax)"
+                     r"(\.|\s|$)",
                      re.MULTILINE)
     for f in files:
         assert not pat.search(f.read_text()), f.name

@@ -124,14 +124,14 @@ def test_lbfgsb_options_unconstrained():
     loss, target = _quad_problem()
     obj = optimize.ScipyObjective(loss, {"a": np.zeros((2, 2)),
                                          "b": np.zeros(1)},
-                                  dtype=torch.float64)
+                                  device="cpu", dtype=torch.float64)
     res = optimize.lbfgsb(obj, maxiter=50, disp=False, iprint=-1)
     out = obj.unpack(res.x)
     assert np.allclose(out["a"].numpy(), target["a"], atol=1e-5)
     assert np.allclose(out["b"].numpy(), 5.0, atol=1e-5)
     capped = optimize.ScipyObjective(loss, {"a": np.zeros((2, 2)),
                                             "b": np.zeros(1)},
-                                     dtype=torch.float64)
+                                     device="cpu", dtype=torch.float64)
     res = optimize.lbfgsb(capped, maxiter=50, maxfun=2)
     assert capped.n_evals <= 3 and res.nfev <= 3
 
@@ -141,7 +141,7 @@ def test_lbfgsb_options_bounds():
     obj = optimize.ScipyObjective(loss, {"a": np.zeros((2, 2)),
                                          "b": np.zeros(1)},
                                   bounds={"a": (0.0, 2.5), "b": (0.0, 10.0)},
-                                  dtype=torch.float64)
+                                  device="cpu", dtype=torch.float64)
     res = optimize.lbfgsb(obj, maxiter=50, disp=False, iprint=-1)
     a = obj.unpack(res.x)["a"].numpy()
     assert a.max() <= 2.5 + 1e-12
@@ -160,7 +160,7 @@ def test_inversion_logger_matches_jax(tmp_path):
     p0 = {"a": np.zeros((2, 2)), "b": np.zeros(1)}
     out = {}
     for name, mod, fn, kw in (("torch", optimize, loss,
-                               dict(dtype=torch.float64)),
+                               dict(device="cpu", dtype=torch.float64)),
                               ("jax", joptimize, jloss, {})):
         d = str(tmp_path / name)
         obj = mod.ScipyObjective(fn, p0, **kw)
