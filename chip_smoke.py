@@ -59,6 +59,16 @@ neural_reparam_fwi_torch at its grid, make_figures_torch in full); and
 `invert --optimizer ondevice` at the reference workload (phase 28); each
 with exact launch counts and no plain call.
 
+The shots sharded over a mesh that repeats the one card (phase 29): the
+kernels' sharded loss against the unsharded one at the reference workload
+over 2 and 4 shards, chunked inside the shards, at 814x2064 (2 shots,
+nt=601), through cli.build_stage_loss with per-trace conditioning and on a
+ragged survey, each with exact launch counts (per shard a forward with
+strips and a backward), no plain call and a second evaluation bitwise
+equal; make_forward(mesh=) bit for bit; and the shot x domain loss of a
+2 x 2 mesh against the plain local loss.  Its seconds are those of shards
+sharing one card, not a scaling.
+
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 3,7,8,9,10,20   # those phases only
     python3 chip_smoke.py --phases 17,21           # the acoustic pair
@@ -66,6 +76,7 @@ with exact launch counts and no plain call.
     python3 chip_smoke.py --phases 23              # acoustic points
     python3 chip_smoke.py --phases 24,25           # rock scale, conditioned
     python3 chip_smoke.py --phases 26,27,28        # the examples' paths
+    python3 chip_smoke.py --phases 29              # shot sharding
 
 Needs one CUDA device and nvcc; exits nonzero, printing no result, without
 them.  Imports neither jax nor sep2023_tpu.  The last line of standard
@@ -94,7 +105,7 @@ from sep2023_tpu_torch.config import SimConfig, Survey, ricker
 from sep2023_tpu_torch.medium import Medium, pad_model_np
 from sep2023_tpu_torch.ops import _build, cuda_acoustic, cuda_engine
 from sep2023_tpu_torch.ops import signal as sg
-from sep2023_tpu_torch.ops.misfit import l2_misfit
+from sep2023_tpu_torch.ops.misfit import l2_misfit, make_preprocessed_l2
 from sep2023_tpu_torch.testing import (AC_CASES, AC_INTERIOR,
                                        AC_TILE_EDGE_CASES, DOT_TOL,
                                        FIBER_CASES, GRAD_TOL, RECON_RATIO,
@@ -2298,6 +2309,270 @@ def phase_invert_ondevice(cfg, rs, scipy_per_eval):
     return counts
 
 
+# Phase 29's tolerances: the sharded value and gradients against the
+# unsharded ones on the same inputs (float32; the shards' sums group the
+# shots otherwise), the JAX package's production-shape rule
+# (__graft_entry__.py:183-189); the shot x domain loss against the plain
+# local loss (autograd through the blocked steps against the boundary-saving
+# adjoint) on the whole grid, but rho's gradient on the interior less 2
+# cells, where that adjoint departs from the exact gradient.
+SHARD_LOSS_TOL = 1e-6
+SHARD_GRAD_TOL = 2e-5
+DD_LOSS_TOL = 1e-5
+DD_GRAD_TOL = 5e-4
+
+
+def _value_and_grad(loss, model, rest, n_pad=0):
+    """(value, gradients of model, seconds) of loss(*model', *rest), model'
+    = model with stf's last row repeated n_pad times (the mesh's padding),
+    the gradients those of the real shots'."""
+    params = [a.detach().clone().requires_grad_() for a in model]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    val = loss(*params[:3], parallel._pad_rows(params[3], n_pad), *rest)
+    grads = torch.autograd.grad(val, params)
+    torch.cuda.synchronize()
+    return val.detach(), grads, time.perf_counter() - t0
+
+
+def _held(label, val, grads, ref_val, ref_grads, loss_tol, grad_tol):
+    """Relative loss error and each gradient's max error over its max,
+    checked against the tolerances."""
+    loss_err = float((val - ref_val).abs() / ref_val.abs())
+    errs = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(grads, ref_grads)]
+    check(np.isfinite(loss_err) and loss_err <= loss_tol
+          and all(np.isfinite(errs)) and max(errs) <= grad_tol,
+          f"{label} against unsharded: loss {loss_err} (tol {loss_tol}), "
+          f"gradients (lam, mu, rho, stf) {errs} (tol {grad_tol})")
+    return loss_err, errs
+
+
+def _sharded_case(label, cfg, survey, model, obs, mesh, *, shot_chunk=0,
+                  aux=(), misfit_fn=None, ref=None, make_loss=None):
+    """One value and gradient of make_cuda_sharded_misfit on `mesh` (or of
+    make_loss(padded survey, padded geoms)) against make_cuda_misfit
+    unsharded on the same inputs (ref: its (value, grads, seconds),
+    computed when None, after a first evaluation that warms it), with exact
+    launch counts (per shard and chunk a forward with strips and a
+    backward), no plain call, and a second evaluation bitwise equal to the
+    first.  Returns (counts, numbers)."""
+    S, n = survey.n_shots, len(mesh)
+    w = torch.ones(S, device=obs.device)
+    if ref is None:
+        local = parallel.make_cuda_misfit(cfg, survey, misfit_fn=misfit_fn,
+                                          shot_chunk=shot_chunk)
+        _value_and_grad(local, model, (obs, w, *aux))  # warm
+        ref = _value_and_grad(local, model, (obs, w, *aux))
+    geoms = parallel.survey_to_geoms(survey, cfg.npml, device=obs.device)
+    _, geoms_p, obs_p, w_p, aux_p = parallel.pad_shots(model[3], geoms, obs,
+                                                       w, n, aux)
+    survey_p = parallel.pad_survey(survey, n)
+    n_pad = survey_p.n_shots - S
+    if make_loss is None:
+        loss = parallel.make_cuda_sharded_misfit(
+            cfg, survey_p, mesh, misfit_fn=misfit_fn, n_trace_aux=len(aux),
+            shot_chunk=shot_chunk)
+    else:
+        loss = make_loss(survey_p, geoms_p)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    val, grads, seconds = _value_and_grad(loss, model, (obs_p, w_p, *aux_p),
+                                          n_pad)
+    counts, plain_calls = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rs = parallel._cuda_plan(cfg, survey_p)[0].rs
+    chunks = len(parallel._chunks(survey_p.n_shots // n, shot_chunk))
+    one = forward_backward_counts(cfg, rs, ELASTIC)
+    want = {k: v * n * chunks for k, v in one.items()}
+    check_counts(label, counts, want, plain_calls)
+    loss_err, errs = _held(label, val, grads, ref[0], ref[1], SHARD_LOSS_TOL,
+                           SHARD_GRAD_TOL)
+    val2, grads2, seconds2 = _value_and_grad(loss, model,
+                                             (obs_p, w_p, *aux_p), n_pad)
+    check(torch.equal(val, val2)
+          and all(torch.equal(a, b) for a, b in zip(grads, grads2)),
+          f"{label}: a second evaluation gave other bits")
+    print(f"{label} {cfg.nz}x{cfg.nx}, nt={cfg.nt}, {S} shots over {n} "
+          f"shards on one card ({survey_p.n_shots} with padding, {chunks} "
+          f"chunk(s) a shard): loss {float(val):.6e}, rel err {loss_err:.3e} "
+          f"<= {SHARD_LOSS_TOL}; gradients (lam, mu, rho, stf) "
+          f"{[f'{e:.3e}' for e in errs]} <= {SHARD_GRAD_TOL} of each max; a "
+          f"second evaluation bitwise equal; launches {counts} = {one} x {n} "
+          f"shards x {chunks} chunk(s); plain calls {plain_calls}; "
+          f"{seconds:.3f} s and {seconds2:.3f} s a sharded value and "
+          f"gradient, {ref[2]:.3f} s unsharded (shards on one card, not "
+          f"scaling); peak memory {peak / 1e9:.3f} GB")
+    return counts, dict(seconds=seconds, seconds_again=seconds2,
+                        unsharded_seconds=ref[2], peak_bytes=peak,
+                        loss_err=loss_err, grad_errs=errs, nt=cfg.nt)
+
+
+def phase_sharded(dev):
+    """The shot sharding on the card (phase 29), the mesh repeating the one
+    card: make_cuda_sharded_misfit against make_cuda_misfit (a) at the
+    reference workload over 2 and 4 shards (the 4-shard mesh pads the 19
+    shots to 20), (b) with shot_chunk=4 inside each shard, (c) with 2 shots
+    at 814x2064, nt=601 (K3/K4's shape), (d) cli.build_stage_loss with a mesh
+    and per-trace windows and weights, and make_forward(mesh=) bit for bit,
+    (e) a ragged survey over 2 shards; (f) make_dd_misfit on a 2 x 2 mesh
+    against the plain local loss on the card."""
+    card = (dev,)
+    out = {}
+    cfg, survey, _, stf = cli.benchmark_problem(device=dev)
+    stf = (stf * sg.taper_window(cfg.nt, cfg.dt, ratio=0.001, device=dev)
+           ).contiguous()
+    _, _, (lam, mu, rho, *_) = reference_problem(dev)
+    model = (lam, mu, rho, stf)
+    S = survey.n_shots
+    fwd = parallel.make_forward(cfg, survey, use_kernels=True, device=dev)
+    obs = fwd((lam * 1.03).contiguous(), mu, rho, stf)
+    local = parallel.make_cuda_misfit(cfg, survey)
+    _value_and_grad(local, model, (obs, torch.ones(S, device=dev)))  # warm
+    ref = _value_and_grad(local, model, (obs, torch.ones(S, device=dev)))
+    for n in (2, 4):
+        out[f"a{n}"] = _sharded_case(f"[29a sharded, {n} shards]", cfg,
+                                     survey, model, obs, card * n, ref=ref)
+    out["b"] = _sharded_case("[29b sharded, chunked by 4]", cfg, survey,
+                             model, obs, card * 2, shot_chunk=4, ref=ref)
+
+    # (d) the CLI's builder with per-trace conditioning, and the forward
+    rng = np.random.default_rng(29)
+    R = survey.n_rec
+    aux = tuple(torch.as_tensor(a, device=dev).float() for a in (
+        rng.uniform(0, 200, (S, R)),
+        rng.uniform(cfg.nt // 2, cfg.nt - 1, (S, R)),
+        rng.uniform(0.5, 2.0, (S, R))))
+    geoms = parallel.survey_to_geoms(survey, cfg.npml, device=dev)
+    build = lambda mesh: lambda sv, g: cli.build_stage_loss(
+        cfg, sv, g, use_kernels=True, mesh=mesh, shot_chunk=0,
+        channels=("ett",), per_trace=True)
+    ref_d = _value_and_grad(build(None)(survey, geoms), model,
+                            (obs, torch.ones(S, device=dev), *aux))
+    fn = make_preprocessed_l2(channels=("ett",), dt=cfg.dt, per_trace=True)
+    out["d"] = _sharded_case("[29d cli.build_stage_loss, 2 shards]", cfg,
+                             survey, model, obs, card * 2, aux=aux,
+                             ref=ref_d, make_loss=build(card * 2))
+    reset_counts()
+    fwd_mesh = parallel.make_forward(cfg, survey, use_kernels=True,
+                                     mesh=card * 2, device=dev)
+    obs_mesh = fwd_mesh((lam * 1.03).contiguous(), mu, rho, stf)
+    torch.cuda.synchronize()
+    counts, plain_calls = read_counts()
+    check_counts("[29d make_forward(mesh=)]", counts,
+                 {"LAUNCHES": forward_launches(cfg) * 2}, plain_calls)
+    check(torch.equal(obs_mesh, obs), "[29d] make_forward(mesh=) differs "
+          "from the unsharded forward")
+    print(f"[29d make_forward(mesh=)] {S} shots over 2 shards ({S + S % 2} "
+          f"with padding): bitwise equal to the unsharded forward; launches "
+          f"{counts['LAUNCHES']} = {forward_launches(cfg)} x 2 shards; plain "
+          f"calls {plain_calls}")
+    del obs_mesh, ref, ref_d
+
+    # (e) a ragged survey: 3 shots, their own spreads, over 2 shards
+    nx = cfg.nx - 2 * cfg.npml
+    row = int(survey.rec_z[0])
+    kw = dict(src_z=np.array([1, 1, 1]), src_x=np.array([40, 100, 160]),
+              rec_z=np.array([[row] * 150, [row - 5] * 150,
+                              [row - 2] * 150]),
+              rec_x=np.array([list(range(20, 140)) + [139] * 30,
+                              list(range(30, 180)), list(range(25, 175))]),
+              rec_live=np.array([[1.0] * 120 + [0.0] * 30, [1.0] * 150,
+                                 [1.0] * 150]))
+    check(int(kw["rec_x"].max()) < nx, "ragged survey off the grid")
+    ragged = Survey(**kw)
+    obs_r = parallel.make_forward(cfg, ragged, use_kernels=True, device=dev)(
+        (lam * 1.03).contiguous(), mu, rho, stf[:3])
+    tw = ragged.live_trace_weights()
+    aux_r = tuple(torch.as_tensor(a, device=dev).float() for a in (
+        np.zeros(tw.shape), np.full(tw.shape, cfg.nt - 1.0), tw))
+    out["e"] = _sharded_case("[29e ragged, 2 shards]", cfg, ragged,
+                             (lam, mu, rho, stf[:3].contiguous()), obs_r,
+                             card * 2, aux=aux_r, misfit_fn=fn)
+    del obs, obs_r
+    torch.cuda.empty_cache()
+
+    # (c) K3/K4's shape: 2 shots at 814x2064, nt=601, on the receiver row
+    # of LARGE_CASES, where the wave arrives within nt
+    cfg_l, rs_l, (lam_l, mu_l, rho_l, stf_l, *_) = large_problem(
+        *LARGE_CASES["814x2064 row"], dev)
+    p = cfg_l.npml
+    survey_l = Survey(src_z=np.full(2, 1),
+                      src_x=np.array([cfg_l.nx // 3, 2 * cfg_l.nx // 3]) - p,
+                      rec_z=np.full(rs_l.n_rec, rs_l.rec_row - p),
+                      rec_x=np.arange(rs_l.n_rec) + rs_l.rec_x0 - p)
+    stf_l = stf_l.expand(2, cfg_l.nt).contiguous()
+    obs_l = parallel.make_forward(cfg_l, survey_l, use_kernels=True,
+                                  device=dev)(lam_l * 1.03, mu_l, rho_l,
+                                              stf_l)
+    out["c"] = _sharded_case("[29c sharded, 814x2064]", cfg_l, survey_l,
+                             (lam_l, mu_l, rho_l, stf_l), obs_l, card * 2)
+    del obs_l
+    torch.cuda.empty_cache()
+    out["f"] = _dd_case(dev)
+    return out
+
+
+def _dd_case(dev, nz=92, nx=132, nt=300, S=4):
+    """Phase 29f: make_dd_misfit on a 2 x 2 mesh of the card against the
+    plain local loss (make_local_misfit) on the card, 4 shots at 92x132
+    (padded), nt=300: the one path whose plain step runs on the card (no
+    counted kernel and no counted plain call).  Gradients on the whole
+    grid but rho's, on the interior less 2 cells; rho's largest difference
+    in those 2 cells is printed."""
+    npml = 16
+    cfg = SimConfig(nz=nz, nx=nx, dz=10.0, dx=10.0, nt=nt, dt=0.001,
+                    f0=15.0, npml=npml)
+    pz, px = nz - 2 * npml, nx - 2 * npml
+    survey = Survey(src_z=np.full(S, 2), src_x=np.linspace(10, px - 10,
+                                                           S).astype(int),
+                    rec_z=np.full(px - 8, pz - 10), rec_x=np.arange(4,
+                                                                    px - 4))
+    vp = np.full((pz, px), 2500.0)
+    vp[pz // 2:, :] = 2900.0
+    t = lambda a: torch.as_tensor(pad_model_np(a, npml), device=dev).to(
+        torch.float32)
+    med = Medium(t(vp), t(vp / np.sqrt(3.0)), t(np.full_like(vp, 2200.0)))
+    lam, mu, rho = (a.contiguous() for a in med.to_lame())
+    stf = torch.as_tensor(ricker(cfg.f0, nt, cfg.dt), device=dev).to(
+        torch.float32).expand(S, nt).contiguous()
+    geoms = parallel.survey_to_geoms(survey, npml, device=dev)
+    fwd = parallel.make_forward(cfg, survey, use_kernels=False, device=dev)
+    obs = fwd((lam * 1.03).contiguous(), mu, rho, stf)
+    w = torch.ones(S, device=dev)
+    model = (lam, mu, rho, stf)
+    local = parallel.make_local_misfit(cfg)
+    ref = _value_and_grad(lambda l, u, r, s, *a: local(l, u, r, s, geoms, *a),
+                          model, (obs, w))
+    mesh = parallel.mesh_2d(2, 2, devices=[dev] * 4)
+    dd = parallel.make_dd_misfit(cfg, mesh)
+    reset_counts()
+    val, grads, seconds = _value_and_grad(
+        lambda l, u, r, s, *a: dd(l, u, r, s, geoms, *a), model, (obs, w))
+    counts, plain_calls = read_counts()
+    check_counts("[29f shot x domain]", counts, {}, plain_calls)
+    n = npml + 2
+    rho_inner = lambda g: [*g[:2], g[2][n:-n, n:-n], g[3]]
+    loss_err, errs = _held("[29f shot x domain]", val, rho_inner(grads),
+                           ref[0], rho_inner(ref[1]), DD_LOSS_TOL,
+                           DD_GRAD_TOL)
+    ring = float((grads[2] - ref[1][2]).abs().max() / ref[1][2].abs().max())
+    print(f"[29f shot x domain] {nz}x{nx}, nt={nt}, {S} shots on a 2 x 2 "
+          f"mesh of the card (2 shot rows, 2 column blocks of {nx // 2} "
+          f"with 2 ghost columns a side): loss {float(val):.6e}, rel err "
+          f"{loss_err:.3e} <= {DD_LOSS_TOL} against the plain local loss; "
+          f"gradients (lam, mu, rho, stf) {[f'{e:.3e}' for e in errs]} <= "
+          f"{DD_GRAD_TOL} of each max on the whole grid (rho's on the "
+          f"interior less 2 cells; in those 2 cells {ring:.3e}, where the "
+          f"boundary-saving adjoint departs from the exact gradient); "
+          f"{seconds:.3f} s a value and gradient (the plain step, autograd "
+          f"through every block step), {ref[2]:.3f} s the plain local loss; "
+          f"no kernel launch and no counted plain call")
+    return dict(seconds=seconds, local_seconds=ref[2], loss_err=loss_err,
+                grad_errs=errs, rho_ring_err=ring)
+
+
 def kernel_record(results):
     """The JSON record of every kernel.  `launches` are the counts of the
     kernel's main path, read just after it ran from counts set to 0 just
@@ -2311,7 +2586,10 @@ def kernel_record(results):
     560x720, nt=1001 and 814x2064, nt=601 (K7, K8); the shot sums alone at
     phase 22's shapes, each launched once by every backward of its main
     path (its launches: that path's backward launches over nt, the
-    launches of one backward).
+    launches of one backward).  `sharded_launches` (K1-strips, K2, the
+    reference workload's shot sum, and at 814x2064 K3 and K4) are those of
+    the sharded main path of phase 29: one value and gradient over 2 shards
+    at the reference workload, and at 814x2064 with 2 shots and nt=601.
     max_abs_err is in the outputs' own units, over outputs of very
     different magnitudes (the four gradients of a backward); max_rel_err is
     relative to each output's max and is what the phases check."""
@@ -2445,6 +2723,27 @@ def kernel_record(results):
         kernels.append(entry(
             f"{name}, {S} shot(s) x {planes} planes: the backward's shot "
             "sum alone", source, replaces, bwd_launches // nt, sums[name]))
+    # the sharded main path's launches (phase 29: 29a over 2 shards at the
+    # reference workload, 29c over 2 shards at 814x2064, nt=601)
+    sharded = {"K1-strips": r[29]["a2"][0]["LAUNCHES_STRIPS"],
+               "K2": r[29]["a2"][0]["LAUNCHES_BWD"],
+               "SUM": r[29]["a2"][0]["LAUNCHES_BWD"] // r[29]["a2"][1]["nt"],
+               "K3": r[29]["c"][0]["LAUNCHES_STRIPS"],
+               "K4": r[29]["c"][0]["LAUNCHES_BWD"]}
+    for k in kernels:
+        name = k["name"]
+        if name.startswith("elastic_forward with boundary strips (") or \
+                name.startswith("elastic_forward with boundary strips at "
+                                "814x2064"):
+            key = "K3" if "814x2064" in name else "K1-strips"
+        elif name.startswith("elastic_backward (") or \
+                name.startswith("elastic_backward at 814x2064"):
+            key = "K4" if "814x2064" in name else "K2"
+        elif name.startswith("sum_shots_kernel, reference workload"):
+            key = "SUM"
+        else:
+            continue
+        k["sharded_launches"] = sharded[key]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: no launch on its main path")
     return {"kernels": kernels}
@@ -2495,6 +2794,7 @@ def main(argv=None):
         (27, lambda: phase_examples(dev)),
         (28, lambda: phase_invert_ondevice(
             ref_cfg, ref_rs, results[11][1] if 11 in results else None)),
+        (29, lambda: phase_sharded(dev)),
         (6, lambda: phase_profile(dev)),
     ]
     only = {int(k) for k in args.phases.split(",") if k.strip()}

@@ -3,8 +3,7 @@
 construct from physical-grid models and index-based acquisition, call
 `apply_forward` or `apply_gradient`.
 
-PyTorch counterpart of `sep2023_tpu/api.py`, on one device (shot sharding
-is ROADMAP M10).
+PyTorch counterpart of `sep2023_tpu/api.py`.
 """
 from __future__ import annotations
 
@@ -37,8 +36,8 @@ class Model:
 
 
 class ElasticPropagator:
-    """Forward modeling and adjoint gradients for one (model, survey) pair
-    on one device.
+    """Forward modeling and adjoint gradients for one (model, survey) pair,
+    the gradient on one device or with the shots sharded over several.
 
     A float32 survey that fits a plan (a receiver row, a multi-row spread,
     a column, a fiber, a ragged union: `parallel._cuda_plan`) runs
@@ -108,30 +107,42 @@ class ElasticPropagator:
         """Misfit + gradients w.r.t. (vp, vs, rho) of `model_init` against
         observed data, plus the per-shot source-wavelet gradient: the
         outputs of the reference's apply_gradient (`propagator.py:141-218`).
-        One device only: n_devices above 1 raises (ROADMAP M10).
+
+        n_devices: shard the shots over a mesh (`parallel.shot_mesh`: 0 =
+        every CUDA device on the card, one on the CPU; k CPU shards with
+        device='cpu'), the reference's ngpu argument (`propagator.py:141`);
+        a shot count the mesh does not divide is padded with zero-weight
+        replicas.  The shards run the kernels' loss
+        (`make_cuda_sharded_misfit`) where the survey has a plan, else the
+        plain propagator's (`make_sharded_misfit`, on the CPU).
 
         Returns dict(misfit, grad_vp, grad_vs, grad_rho, grad_stf); gradients
         are on the PHYSICAL grid (PML collar folded back by the differentiable
         pad, `propagator.py:198`)."""
-        if n_devices > 1:
-            raise NotImplementedError(
-                "shot sharding over several devices is ROADMAP M10")
+        S = self.survey.n_shots
         obs = torch.as_tensor(np.asarray(obs)).to(self.device, self.dtype)
-        w = torch.ones(self.survey.n_shots, device=self.device,
-                       dtype=self.dtype)
+        w = torch.ones(S, device=self.device, dtype=self.dtype)
+        survey, geoms, ch = self.survey, self.geoms, tuple(channels)
+        mesh = parallel.shot_mesh(n_devices, device=self.device, n_shots=S)
+        if mesh is not None:
+            _, geoms, obs, w, _ = parallel.pad_shots(self.stf, geoms, obs, w,
+                                                     len(mesh))
+            survey = parallel.pad_survey(survey, len(mesh))
         if self.rs is not None:
-            loss = parallel.make_cuda_misfit(self.cfg, self.survey,
-                                             channels=tuple(channels))
+            loss = (parallel.make_cuda_misfit(self.cfg, survey, channels=ch)
+                    if mesh is None else parallel.make_cuda_sharded_misfit(
+                        self.cfg, survey, mesh, channels=ch))
         else:  # only on the CPU: __init__ raises elsewhere
-            base = parallel.make_local_misfit(self.cfg,
-                                              channels=tuple(channels))
-            loss = lambda l, u, r, s, o, w_: base(l, u, r, s, self.geoms,
-                                                  o, w_)
+            base = (parallel.make_local_misfit(self.cfg, channels=ch)
+                    if mesh is None else parallel.make_sharded_misfit(
+                        self.cfg, mesh, channels=ch))
+            loss = lambda l, u, r, s, o, w_: base(l, u, r, s, geoms, o, w_)
         t = lambda a: torch.as_tensor(np.asarray(a), device=self.device
                                       ).to(self.dtype).requires_grad_()
         vp, vs, rho = t(model_init.vp), t(model_init.vs), t(model_init.rho)
         stf = self.stf.clone().requires_grad_()
-        val = loss(*self._padded(vp, vs, rho), stf, obs, w)
+        val = loss(*self._padded(vp, vs, rho),
+                   parallel._pad_rows(stf, w.shape[0] - S), obs, w)
         grads = torch.autograd.grad(val, (vp, vs, rho, stf))
         out = lambda g: g.detach().cpu().numpy()
         return {

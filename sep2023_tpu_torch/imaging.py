@@ -18,7 +18,7 @@ from sep2023_tpu_torch import acoustic, propagator
 from sep2023_tpu_torch.config import SimConfig
 from sep2023_tpu_torch.medium import material_fields
 from sep2023_tpu_torch.ops import misfit as mf
-from sep2023_tpu_torch.ops.cuda_engine import PLAIN_CALLS
+from sep2023_tpu_torch.ops.cuda_engine import count_plain
 
 
 def lame_grads_to_velocity(g_lam, g_mu, g_rho, vp, vs, rho):
@@ -67,7 +67,7 @@ def source_illumination(cfg: SimConfig, lam, mu, rho, stf, geoms):
     version of `cuda_engine.illumination_cuda_plan`, and counted in its
     PLAIN_CALLS.  The `rtm` command sums it over shots as it sums the
     image."""
-    PLAIN_CALLS["source_illumination"] += 1
+    count_plain("source_illumination")
     dtype, device = lam.dtype, lam.device
     mat = material_fields(lam, mu, rho)
     cp, mask_f = propagator._consts(cfg, device=device, dtype=dtype)

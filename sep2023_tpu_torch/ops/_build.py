@@ -7,9 +7,10 @@ at first use and is keyed by a hash of the sources (`*.cu`, `*.cuh`) and
 flags, so an edited source rebuilds and an unchanged one is loaded from
 `build/sep2023_tpu_torch/` at the repository root.  nvcc's report of each
 kernel's registers and spills (`-Xptxas -v`) is kept beside the library
-(`build_log`).  A process resolves and loads the library once; later calls
-of `load` return it without hashing the sources again.  Nothing here runs
-at import time.
+(`build_log`).  A process resolves and loads the library once, under a
+lock, so that shard threads reaching first use together run one build; later
+calls of `load` return it without hashing the sources again.  Nothing here
+runs at import time.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -27,6 +29,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 _LIB: ctypes.CDLL | None = None  # the library this process loaded
+_LOAD_LOCK = threading.Lock()
 
 
 def _sources() -> list[Path]:
@@ -98,33 +101,40 @@ def build() -> Path:
 def load() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed, with every
     exported function's argument and return types declared."""
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.elastic_forward.argtypes = [P] * 17 + [I] * 17 + [F] * 4 + [P]
-        lib.elastic_forward.restype = I
-        lib.elastic_backward.argtypes = [P] * 23 + [I] * 16 + [F, F, P]
-        lib.elastic_backward.restype = I
-        lib.elastic_tile_plan.argtypes = [P]
-        lib.elastic_tile_plan.restype = None
-        lib.elastic_illumination.argtypes = [P] * 10 + [I] * 8 + [F, F, P]
-        lib.elastic_illumination.restype = I
-        lib.acoustic_forward.argtypes = [P] * 14 + [I] * 15 + [F, F, P]
-        lib.acoustic_forward.restype = I
-        lib.acoustic_backward.argtypes = [P] * 23 + [I] * 15 + [F, F, P]
-        lib.acoustic_backward.restype = I
-        lib.elastic_sum_shots.argtypes = [P, P, I, I, I, P]
-        lib.elastic_sum_shots.restype = I
-        lib.acoustic_sum_shots.argtypes = [P, P, I, I, I, I, P]
-        lib.acoustic_sum_shots.restype = I
-        lib.empty_launch.argtypes = [I, P]
-        lib.empty_launch.restype = I
-        for name in ("elastic_forward_plan", "elastic_backward_plan",
-                     "acoustic_forward_plan", "acoustic_backward_plan"):
-            getattr(lib, name).argtypes = [P]
-            getattr(lib, name).restype = I
-        lib.elastic_error_string.argtypes = [I]
-        lib.elastic_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+    with _LOAD_LOCK:
+        if _LIB is None:
+            _load_library()
     return _LIB
+
+
+def _load_library():
+    """Load the library of the current sources, built first if needed, and
+    declare its functions' argument and return types."""
+    global _LIB
+    lib = ctypes.CDLL(str(build()))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.elastic_forward.argtypes = [P] * 17 + [I] * 17 + [F] * 4 + [P]
+    lib.elastic_forward.restype = I
+    lib.elastic_backward.argtypes = [P] * 23 + [I] * 16 + [F, F, P]
+    lib.elastic_backward.restype = I
+    lib.elastic_tile_plan.argtypes = [P]
+    lib.elastic_tile_plan.restype = None
+    lib.elastic_illumination.argtypes = [P] * 10 + [I] * 8 + [F, F, P]
+    lib.elastic_illumination.restype = I
+    lib.acoustic_forward.argtypes = [P] * 14 + [I] * 15 + [F, F, P]
+    lib.acoustic_forward.restype = I
+    lib.acoustic_backward.argtypes = [P] * 23 + [I] * 15 + [F, F, P]
+    lib.acoustic_backward.restype = I
+    lib.elastic_sum_shots.argtypes = [P, P, I, I, I, P]
+    lib.elastic_sum_shots.restype = I
+    lib.acoustic_sum_shots.argtypes = [P, P, I, I, I, I, P]
+    lib.acoustic_sum_shots.restype = I
+    lib.empty_launch.argtypes = [I, P]
+    lib.empty_launch.restype = I
+    for name in ("elastic_forward_plan", "elastic_backward_plan",
+                 "acoustic_forward_plan", "acoustic_backward_plan"):
+        getattr(lib, name).argtypes = [P]
+        getattr(lib, name).restype = I
+    lib.elastic_error_string.argtypes = [I]
+    lib.elastic_error_string.restype = ctypes.c_char_p
+    _LIB = lib

@@ -58,11 +58,12 @@ from sep2023_tpu_torch import acoustic, propagator
 from sep2023_tpu_torch.acoustic import AcFields, AcGeom
 from sep2023_tpu_torch.config import SimConfig
 from sep2023_tpu_torch.ops import cuda_engine
-from sep2023_tpu_torch.ops.cuda_engine import (PLAIN_CALLS, FastPlan,
+from sep2023_tpu_torch.ops.cuda_engine import (COUNT_LOCK, FastPlan,
                                                _check_model, _check_tensor,
                                                _load, _profiles, _ptr,
                                                _raise_on, _row_args,
-                                               band_floats, cpml_bands)
+                                               band_floats, count_plain,
+                                               cpml_bands)
 
 # Kernel launches made by forward_cuda_acoustic_plan: nt a forward (nt-1
 # fused steps, each recording the state it reads, and one record-only
@@ -152,7 +153,7 @@ def forward_plain_acoustic(cfg: SimConfig, rs, lam, rho, stf, src_z, src_x):
     """The plain PyTorch version of the acoustic forward kernel:
     acoustic.propagate_acoustic_shots on the survey, on the tensors' own
     device."""
-    PLAIN_CALLS["forward_plain_acoustic"] += 1
+    count_plain("forward_plain_acoustic")
     geoms = _geoms(cfg, rs, src_z, src_x, lam.device)
     return acoustic.propagate_acoustic_shots(cfg, lam, rho, stf, geoms)
 
@@ -162,7 +163,7 @@ def forward_plain_acoustic_strips(cfg: SimConfig, rs, lam, rho, stf,
                                   src_z, src_x):
     """The plain version of the forward kernel with strip saving: (data,
     strips (S, nt-1, 3, strip_len), final fields (3, S, nz, nx))."""
-    PLAIN_CALLS["forward_plain_acoustic_strips"] += 1
+    count_plain("forward_plain_acoustic_strips")
     geoms = _geoms(cfg, rs, src_z, src_x, lam.device)
     data, final, strips = acoustic._forward(cfg, lam, rho, stf, geoms,
                                             save_bnd=True)
@@ -175,7 +176,7 @@ def backward_plain_acoustic(cfg: SimConfig, rs, lam, rho, stf, src_z, src_x,
     """The plain version of the backward kernel, acoustic.adjoint on the
     survey: (d_lam, d_rho, d_stf), the material gradients kept inside the
     tight interior and chained through the buoyancies."""
-    PLAIN_CALLS["backward_plain_acoustic"] += 1
+    count_plain("backward_plain_acoustic")
     geoms = _geoms(cfg, rs, src_z, src_x, lam.device)
     gmat, d_stf, _ = acoustic.adjoint(cfg, lam, rho, stf, geoms,
                                       AcFields(*final), strips, d_data)
@@ -187,7 +188,7 @@ def reconstruct_plain_acoustic(cfg: SimConfig, rs, lam, rho, stf, src_z,
                                src_x, final, strips):
     """The plain reconstruction alone (acoustic.reconstruct): the fields
     (3, S, nz, nx) rebuilt back to t=0 from the final fields and strips."""
-    PLAIN_CALLS["reconstruct_plain_acoustic"] += 1
+    count_plain("reconstruct_plain_acoustic")
     geoms = _geoms(cfg, rs, src_z, src_x, lam.device)
     f0 = acoustic.reconstruct(cfg, lam, rho, stf, geoms, AcFields(*final),
                               strips)
@@ -200,7 +201,7 @@ def rtm_image_time_plain(cfg: SimConfig, rs, vp, rho, stf, src_z, src_x,
     """The plain version of rtm_image_time_cuda_plan,
     acoustic.rtm_image_time_shots on the survey: (image, illumination), each
     (S, nz, nx)."""
-    PLAIN_CALLS["rtm_image_time_plain"] += 1
+    count_plain("rtm_image_time_plain")
     geoms = _geoms(cfg, rs, src_z, src_x, vp.device)
     return acoustic.rtm_image_time_shots(cfg, vp, rho, stf, geoms, residual)
 
@@ -261,9 +262,11 @@ def forward_cuda_acoustic_plan(plan: FastPlan, lam, rho, stf, src_z, src_x,
             ctypes.c_float(cfg.dt), ctypes.c_float(cfg.src_scale * cfg.dt),
             stream)
     _raise_on(lib, err, "acoustic_forward")
-    LAUNCHES_AC += launches_forward_acoustic(cfg)
+    with COUNT_LOCK:
+        LAUNCHES_AC += launches_forward_acoustic(cfg)
+        if save_strips:
+            LAUNCHES_AC_STRIPS += launches_forward_acoustic(cfg)
     if save_strips:
-        LAUNCHES_AC_STRIPS += launches_forward_acoustic(cfg)
         # the final fields alone, so the double buffer is freed here
         return data, strips, fields[(cfg.nt - 1) % 2].clone()
     return data
@@ -313,9 +316,10 @@ def _backward_kernel(plan: FastPlan, lam, rho, stf, src, final, strips,
             ctypes.c_float(cfg.dt), ctypes.c_float(cfg.src_scale * cfg.dt),
             stream)
     _raise_on(lib, err, "acoustic_backward")
-    LAUNCHES_AC_BWD += launches_backward_acoustic(cfg, rs)
-    if img_coef is not None:
-        LAUNCHES_AC_IMG += launches_backward_acoustic(cfg, rs)
+    with COUNT_LOCK:
+        LAUNCHES_AC_BWD += launches_backward_acoustic(cfg, rs)
+        if img_coef is not None:
+            LAUNCHES_AC_IMG += launches_backward_acoustic(cfg, rs)
     return acc, acc_sum, d_stf, fields[(cfg.nt - 1) % 2]
 
 

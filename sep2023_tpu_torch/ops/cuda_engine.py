@@ -46,12 +46,14 @@ the plain versions or to the CPU.  `LAUNCHES` and `LAUNCHES_BWD` count the
 kernel launches (`LAUNCHES_STRIPS` the forward's with strip saving,
 `LAUNCHES_FIBER` the record-only launches of point-receiver forwards among
 them) and `PLAIN_CALLS` the calls of each plain version, so a run can show
-which path it went through.
+which path it went through.  Every update of them holds `COUNT_LOCK`:
+the shard threads of a sharded loss (`parallel._on_mesh`) launch at once.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -93,6 +95,15 @@ PLAIN_CALLS = {"forward_plain": 0, "forward_plain_strips": 0,
                "backward_plain_acoustic": 0,
                "reconstruct_plain_acoustic": 0, "rtm_image_time_plain": 0,
                "source_illumination": 0, "snapshots_plain": 0}
+# Held by every update of the counters above and of the acoustic engine's,
+# which are read-modify-writes shared by the threads of a sharded loss.
+COUNT_LOCK = threading.Lock()
+
+
+def count_plain(name: str) -> None:
+    """Add one to PLAIN_CALLS[name], under COUNT_LOCK."""
+    with COUNT_LOCK:
+        PLAIN_CALLS[name] += 1
 
 # Planes of nz x nx a shot, as the wrappers allocate them: the fields twice
 # (the kernels' double buffer, the forward's and the backward's), the
@@ -584,7 +595,7 @@ def _geoms(cfg, rs, src_z, src_x, rxz, device, dtype):
 def forward_plain(cfg: SimConfig, rs, lam, mu, rho, stf, src_z, src_x, rxz):
     """The plain PyTorch version of the forward kernel:
     propagator.propagate_shots on the survey, on the tensors' own device."""
-    PLAIN_CALLS["forward_plain"] += 1
+    count_plain("forward_plain")
     geoms = _geoms(cfg, rs, src_z, src_x, rxz, lam.device, lam.dtype)
     return propagator.propagate_shots(cfg, lam, mu, rho, stf, geoms)
 
@@ -594,7 +605,7 @@ def forward_plain_strips(cfg: SimConfig, rs, lam, mu, rho, stf,
                          src_z, src_x, rxz):
     """The plain version of the forward kernel with strip saving: (data,
     strips (S, nt-1, 5, strip_len), final fields (5, S, nz, nx))."""
-    PLAIN_CALLS["forward_plain_strips"] += 1
+    count_plain("forward_plain_strips")
     geoms = _geoms(cfg, rs, src_z, src_x, rxz, lam.device, lam.dtype)
     data, final, strips = propagator._forward(cfg, lam, mu, rho, stf, geoms,
                                               save_bnd=True)
@@ -607,7 +618,7 @@ def backward_plain(cfg: SimConfig, rs, lam, mu, rho, stf,
     """The plain version of the backward kernel, propagator.adjoint on the
     survey: (d_lam, d_mu, d_rho, d_stf), the material gradients kept
     inside the interior and chained through material_fields."""
-    PLAIN_CALLS["backward_plain"] += 1
+    count_plain("backward_plain")
     geoms = _geoms(cfg, rs, src_z, src_x, rxz, lam.device, lam.dtype)
     gmat, d_stf, _ = propagator.adjoint(cfg, lam, mu, rho, stf, geoms,
                                         Fields(*final), strips, d_data)
@@ -619,7 +630,7 @@ def reconstruct_plain(cfg: SimConfig, rs, lam, mu, rho, stf,
                       src_z, src_x, rxz, final, strips):
     """The plain reconstruction alone (propagator.reconstruct): the fields
     (5, S, nz, nx) rebuilt back to t=0 from the final fields and strips."""
-    PLAIN_CALLS["reconstruct_plain"] += 1
+    count_plain("reconstruct_plain")
     geoms = _geoms(cfg, rs, src_z, src_x, rxz, lam.device, lam.dtype)
     f0 = propagator.reconstruct(cfg, lam, mu, rho, stf, geoms,
                                 Fields(*final), strips)
@@ -692,7 +703,7 @@ def snapshots_plain(cfg: SimConfig, rs, lam, mu, rho, stf, src_z, src_x, rxz,
                     save_every: int):
     """The plain version of the snapshot route:
     propagator.propagate_snapshots_shots on the survey."""
-    PLAIN_CALLS["snapshots_plain"] += 1
+    count_plain("snapshots_plain")
     geoms = _geoms(cfg, rs, src_z, src_x, rxz, lam.device, lam.dtype)
     return propagator.propagate_snapshots_shots(cfg, lam, mu, rho, stf,
                                                 geoms, save_every)
@@ -766,11 +777,12 @@ def _forward_kernel(plan: FastPlan, cfg: SimConfig, lam, mu, rho, stf, src,
             ctypes.c_float(one / np.float32(cfg.dz)),
             ctypes.c_float(one / np.float32(cfg.dx)), stream)
     _raise_on(lib, err, "elastic_forward")
-    LAUNCHES += launches_forward(cfg)
-    if save_strips:
-        LAUNCHES_STRIPS += launches_forward(cfg)
-    if rec is not None and cfg.nt > 1:
-        LAUNCHES_FIBER += 1
+    with COUNT_LOCK:
+        LAUNCHES += launches_forward(cfg)
+        if save_strips:
+            LAUNCHES_STRIPS += launches_forward(cfg)
+        if rec is not None and cfg.nt > 1:
+            LAUNCHES_FIBER += 1
     return data, strips, snaps, fields
 
 
@@ -814,7 +826,8 @@ def illumination_cuda_plan(plan: FastPlan, lam, mu, rho, stf, src_z, src_x,
             ctypes.c_float(cfg.dt), ctypes.c_float(cfg.src_scale * cfg.dt),
             stream)
     _raise_on(lib, err, "elastic_illumination")
-    LAUNCHES_ILL += cfg.nt - 1
+    with COUNT_LOCK:
+        LAUNCHES_ILL += cfg.nt - 1
     mz, mx = propagator._interior_mask(cfg, device=device,
                                        dtype=torch.float32)
     return ill * (mz * mx)
@@ -860,7 +873,8 @@ def _backward_kernel(plan: FastPlan, lam, mu, rho, stf, src, final, strips,
             *cpml_bands(cfg), ctypes.c_float(cfg.dt),
             ctypes.c_float(cfg.src_scale * cfg.dt), stream)
     _raise_on(lib, err, "elastic_backward")
-    LAUNCHES_BWD += launches_backward(cfg, rs)
+    with COUNT_LOCK:
+        LAUNCHES_BWD += launches_backward(cfg, rs)
     return gmat, d_stf, fields[(cfg.nt - 1) % 2]
 
 

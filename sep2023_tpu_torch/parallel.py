@@ -1,31 +1,46 @@
-"""Shot-batched losses and forwards on one device.
+"""Shot-batched losses and forwards, on one device or sharded over several.
 
-PyTorch counterpart of the single-device part of `sep2023_tpu/parallel.py`.
-All shots of a chunk run together (the shot axis is a batch dimension of the
-propagator and of the kernels); a long shot list runs in chunks whose
-boundary strips and state planes fit device memory (`auto_shot_chunk`),
-with the chunked gradient accumulator `_chunked_sum`.  Surveys reach the
-kernels through a plan (`_cuda_plan`): a receiver row, any other shared
-spread as point receivers, and ragged spreads as the union of their points
-with a per-shot gather.  Sharding shots over several cards is ROADMAP M10.
+PyTorch counterpart of `sep2023_tpu/parallel.py`.  All shots of a chunk run
+together (the shot axis is a batch dimension of the propagator and of the
+kernels); a long shot list runs in chunks whose boundary strips and state
+planes fit device memory (`auto_shot_chunk`), with the chunked gradient
+accumulator `_chunked_sum`.  Surveys reach the kernels through a plan
+(`_cuda_plan`): a receiver row, any other shared spread as point receivers,
+and ragged spreads as the union of their points with a per-shot gather.
+
+Several devices share the shots as the reference's multi-GPU scheduler does
+(`Torch_Fwi.cpp:71-101`: one process, a thread a GPU, a host-side gradient
+sum).  A mesh is a tuple of torch.device, one entry a shard (`shot_mesh`;
+entries may repeat, as (cpu,) * 8 or (cuda:0, cuda:0)); the sharded losses
+and `make_forward(mesh=)` run each shard's contiguous block of shots in a
+thread of its own on its device (`_on_mesh`), the model replicated to every
+shard by `_Replicate`, whose backward sums the shards' gradients in shard
+order.  The shot count must be a multiple of the mesh size (`pad_shots`,
+`pad_survey`).  `make_dd_misfit` adds the shot x domain split of
+`mesh_2d`: each shard row splits the grid's x axis into column blocks
+that exchange 2 ghost columns every half step.
 
 Loss builders return
-    loss(lam, mu, rho, stf, [geoms,] obs, weights)
+    loss(lam, mu, rho, stf, [geoms,] obs, weights, *trace_aux)
 with `weights` the per-shot misfit factors (ones by default).
 """
 from __future__ import annotations
 
+import contextlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from sep2023_tpu_torch import acoustic as acoustic_mod
 from sep2023_tpu_torch import propagator
 from sep2023_tpu_torch.config import SimConfig, Survey
+from sep2023_tpu_torch.medium import MatFields, material_fields
 from sep2023_tpu_torch.ops import cuda_acoustic, cuda_engine
 from sep2023_tpu_torch.ops import misfit as mf
-from sep2023_tpu_torch.propagator import ShotGeom
+from sep2023_tpu_torch.propagator import Fields, Psi, ShotGeom
 
 # Strip budget when the device reports no memory size (the CPU).
 FALLBACK_BUDGET_BYTES = 6 << 30
@@ -48,6 +63,151 @@ def survey_to_geoms(survey: Survey, npml: int, *, device,
         rec_z=idx(survey.rec_z).expand(S, survey.n_rec),
         rec_x=idx(survey.rec_x).expand(S, survey.n_rec),
     )
+
+
+def shot_mesh(n_devices: int | None = None, *, device,
+              n_shots: int | None = None):
+    """The shot mesh: a tuple of torch.device, one entry a shard, or None
+    when it comes to one device (`sep2023_tpu/cli.py::_resolve_mesh` and
+    `sep2023_tpu/api.py:106-107`): n = min(n_devices or count, count,
+    n_shots).  On a CUDA `device` count is torch.cuda.device_count() and
+    the mesh is cuda:0 .. cuda:n-1; on the CPU n_devices = k gives k CPU
+    shards (the JAX tests' virtual CPU devices), and 0 or None one."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    else:
+        devices = [device] * max(1, n_devices or 1)
+    n = min(n_devices or len(devices), len(devices),
+            n_shots if n_shots is not None else len(devices))
+    return tuple(devices[:n]) if n > 1 else None
+
+
+def _pad_rows(a, rem: int):
+    """a with its last row (leading axis) repeated rem more times."""
+    if a is None or rem == 0:
+        return a
+    return torch.cat([a, a[-1:].expand(rem, *a.shape[1:])])
+
+
+def pad_shots(stf, geoms: ShotGeom, obs, weights, n_devices: int,
+              trace_aux=()):
+    """Pad the shot axis to a multiple of n_devices with replicas of the
+    last shot of weight 0: (stf, geoms, obs, weights, trace_aux)."""
+    rem = (-stf.shape[0]) % n_devices
+    if rem == 0:
+        return stf, geoms, obs, weights, tuple(trace_aux)
+    w = torch.cat([weights, weights.new_zeros(rem)])
+    return (_pad_rows(stf, rem),
+            ShotGeom(*(_pad_rows(g, rem) for g in geoms)),
+            _pad_rows(obs, rem), w,
+            tuple(_pad_rows(a, rem) for a in trace_aux))
+
+
+def pad_survey(survey: Survey, n_devices: int) -> Survey:
+    """The survey with the last shot's source entries replicated as
+    `pad_shots` replicates its arrays, so that the kernels' loss builders,
+    which take each shot's source from the survey, see the padded shot
+    count.  Ragged surveys replicate the last shot's receivers and live
+    mask too."""
+    rem = (-survey.n_shots) % n_devices
+    if rem == 0:
+        return survey
+    rep = lambda a: np.concatenate([a, np.repeat(a[-1:], rem, axis=0)])
+    ragged = survey.ragged
+    return Survey(src_z=rep(survey.src_z), src_x=rep(survey.src_x),
+                  rec_z=rep(survey.rec_z) if ragged else survey.rec_z,
+                  rec_x=rep(survey.rec_x) if ragged else survey.rec_x,
+                  src_rxz=rep(survey.src_rxz),
+                  rec_live=(rep(survey.rec_live)
+                            if survey.rec_live is not None else None))
+
+
+def _on_mesh(mesh, fn):
+    """[fn(i, dev) for each shard i of the mesh], each call in a thread of
+    its own under its CUDA device, with the caller's grad mode; the results
+    in shard order.  A shard's exception is raised here once every shard
+    has ended."""
+    grad = torch.is_grad_enabled()
+
+    def run(i, dev):
+        on_dev = (torch.cuda.device(dev) if dev.type == "cuda"
+                  else contextlib.nullcontext())
+        with on_dev, torch.set_grad_enabled(grad):
+            return fn(i, dev)
+
+    with ThreadPoolExecutor(max_workers=len(mesh)) as pool:
+        futures = [pool.submit(run, i, dev) for i, dev in enumerate(mesh)]
+        return [f.result() for f in futures]
+
+
+def _blocks(mesh, S: int):
+    """The contiguous block of shots [a, b) of each shard (P('shot'))."""
+    n = len(mesh)
+    if S % n:
+        raise ValueError(f"{S} shots do not split over a mesh of {n}: pad "
+                         "them first (pad_shots, pad_survey)")
+    return [(i * S // n, (i + 1) * S // n) for i in range(n)]
+
+
+class _Replicate(torch.autograd.Function):
+    """One copy of each tensor a shard, on the shard's device (the tensor
+    itself where the devices agree).  The backward sums the shards'
+    gradients on each tensor's own device in shard order: the gradient
+    all-reduce of the reference's host-side sum (Torch_Fwi.cpp:96-101), in
+    one order, so that two runs give the same bits."""
+
+    @staticmethod
+    def forward(ctx, mesh, *tensors):
+        ctx.homes = [t.device for t in tensors]
+        return tuple(t.to(dev) for dev in mesh for t in tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n = len(ctx.homes)
+        out = []
+        for k, home in enumerate(ctx.homes):
+            total = None
+            for g in grads[k::n]:
+                if g is not None:
+                    g = g.to(home)
+                    total = g if total is None else total + g
+            out.append(total)
+        return (None, *out)
+
+
+def _sharded_sum(mesh, shard_loss, model, per_shot):
+    """sum over the shards of shard_loss(a, model_i, per_shot_i): a the
+    global number of the shard's first shot, model_i the model's copy on
+    its device, per_shot_i the shard's rows of every tensor of per_shot
+    (leading shot axis) on its device, added on the first shard's device in
+    shard order."""
+    blocks = _blocks(mesh, per_shot[0].shape[0])
+    copies = _Replicate.apply(mesh, *model)
+    n = len(model)
+
+    def run(i, dev):
+        a, b = blocks[i]
+        return shard_loss(a, copies[i * n:(i + 1) * n],
+                          [t[a:b].to(dev) for t in per_shot])
+
+    return _sum_in_order(_on_mesh(mesh, run))
+
+
+def _sum_in_order(vals):
+    """vals[0] + vals[1] + ... on the first value's device, in that order
+    (one order, so that two runs give the same bits)."""
+    total = vals[0]
+    for v in vals[1:]:
+        total = total + v.to(total.device)
+    return total
+
+
+def _check_aux(trace_aux, n_trace_aux: int):
+    if len(trace_aux) != n_trace_aux:
+        raise ValueError(f"the loss was built for {n_trace_aux} trace_aux "
+                         f"tensors, got {len(trace_aux)}")
 
 
 def default_shot_misfit(channels: Sequence[str] = ("ett",)):
@@ -279,7 +439,10 @@ def make_cuda_misfit(cfg: SimConfig, survey: Survey,
     where it has one, else shot by shot (`_over_shots`), and the weighted
     results are summed.  Every tensor of trace_aux leads with the
     shot axis.  shot_chunk > 0 bounds the strip memory through the chunked
-    accumulator (`_chunked_sum`; gradients flow to the model and stf)."""
+    accumulator (`_chunked_sum`; gradients flow to the model and stf).
+    first_shot: the survey's number of stf's first row (a shard of
+    `make_cuda_sharded_misfit` passes its block's), so that each row fires
+    its own shot's source and picks its own spread."""
     plan, uidx = _cuda_plan(cfg, survey, das_w)
     src_z = survey.src_z + cfg.npml
     src_x = survey.src_x + cfg.npml
@@ -287,7 +450,7 @@ def make_cuda_misfit(cfg: SimConfig, survey: Survey,
     fn = (default_shot_misfit(channels) if misfit_fn is None
           else _over_shots(misfit_fn))
 
-    def loss(lam, mu, rho, stf, obs, weights, *trace_aux):
+    def loss(lam, mu, rho, stf, obs, weights, *trace_aux, first_shot=0):
         def chunk_loss(model, stf_c, rest_c, w_c):
             shots, obs_c, *aux_c = rest_c
             idx = shots.numpy()
@@ -297,22 +460,91 @@ def make_cuda_misfit(cfg: SimConfig, survey: Survey,
                 syn = _gather_union(syn, uidx[shots].to(syn.device))
             return (w_c * fn(obs_c, syn, *aux_c)).sum()
 
-        shots = torch.arange(stf.shape[0])
+        shots = torch.arange(first_shot, first_shot + stf.shape[0])
+        if shots[-1] >= survey.n_shots:
+            raise ValueError(f"shots {first_shot}..{int(shots[-1])} of a "
+                             f"survey of {survey.n_shots}")
         return _chunked_sum(chunk_loss, (lam, mu, rho), stf,
                             (shots, obs, *trace_aux), weights, shot_chunk)
 
     return loss
 
 
+def make_sharded_misfit(cfg: SimConfig, mesh,
+                        channels: Sequence[str] = ("ett",), misfit_fn=None,
+                        n_trace_aux: int = 0, shot_chunk: int = 0):
+    """The plain propagator's loss with the shots sharded over `mesh`
+    (`sep2023_tpu/parallel.py::make_sharded_misfit`):
+    loss(lam, mu, rho, stf, geoms, obs, weights, *trace_aux), each shard
+    running `make_local_misfit` (with shot_chunk inside it) on its block
+    of shots in a thread of its own.  Differentiable: the model's
+    gradients are the sum of the shards'.  The shot count must be a
+    multiple of the mesh size (`pad_shots`)."""
+    local = make_local_misfit(cfg, channels=channels, shot_chunk=shot_chunk,
+                              misfit_fn=misfit_fn)
+
+    def loss(lam, mu, rho, stf, geoms, obs, weights, *trace_aux):
+        _check_aux(trace_aux, n_trace_aux)
+        geo = [g for g in geoms if g is not None]
+        das = geoms.das_w is not None
+
+        def shard(a, model, rows):
+            stf_, obs_, w_, *rest = rows
+            g = ShotGeom(*rest[:5], das_w=rest[5] if das else None)
+            return local(*model, stf_, g, obs_, w_, *rest[len(geo):])
+
+        return _sharded_sum(mesh, shard, (lam, mu, rho),
+                            (stf, obs, weights, *geo, *trace_aux))
+
+    return loss
+
+
+def make_cuda_sharded_misfit(cfg: SimConfig, survey: Survey, mesh,
+                             channels: Sequence[str] = ("ett",),
+                             misfit_fn=None, n_trace_aux: int = 0,
+                             shot_chunk: int = 0, das_w=None):
+    """The kernels' loss with the shots sharded over `mesh`
+    (`make_pallas_sharded_misfit`'s counterpart):
+    loss(lam, mu, rho, stf, obs, weights, *trace_aux).  One plan for the
+    (padded) survey; each shard runs `make_cuda_misfit`'s loss on its
+    block of shots, numbered as in the survey, in a thread of its own on
+    its device: a forward with strips and a backward a chunk.  The shot
+    count must be the survey's and a multiple of the mesh size
+    (`pad_shots`, `pad_survey`)."""
+    local = make_cuda_misfit(cfg, survey, channels=channels,
+                             shot_chunk=shot_chunk, misfit_fn=misfit_fn,
+                             das_w=das_w)
+
+    def loss(lam, mu, rho, stf, obs, weights, *trace_aux):
+        _check_aux(trace_aux, n_trace_aux)
+        if stf.shape[0] != survey.n_shots:
+            raise ValueError(f"{stf.shape[0]} shots for a survey of "
+                             f"{survey.n_shots}: pad_survey pads it")
+
+        def shard(a, model, rows):
+            return local(*model, *rows, first_shot=a)
+
+        return _sharded_sum(mesh, shard, (lam, mu, rho),
+                            (stf, obs, weights, *trace_aux))
+
+    return loss
+
+
 def make_forward(cfg: SimConfig, survey: Survey, *, use_kernels: bool,
-                 shot_chunk: int = 0, device, dtype=torch.float32,
+                 mesh=None, shot_chunk: int = 0, device, dtype=torch.float32,
                  das_w=None):
     """The forward for observed data (twin experiments), through the same
-    engine as the loss: fwd(lam, mu, rho, stf) -> (S, 4, R, nt).  With
-    use_kernels, cuda_engine.forward_cuda_plan on the survey's plan (ragged
-    surveys come back on their padded (S, R_max) spreads); else the plain
-    propagator.  Runs without autograd, in shot chunks."""
+    engine, mesh and chunks as the loss: fwd(lam, mu, rho, stf) -> (S, 4,
+    R, nt).  With use_kernels, cuda_engine.forward_cuda_plan on the
+    survey's plan (ragged surveys come back on their padded (S, R_max)
+    spreads); else the plain propagator.  With a mesh the shots are padded
+    to a multiple of its size, each shard runs its block in a thread of its
+    own on its device, and the blocks are joined in shard order on the
+    first shard's device without the padding.  Runs without autograd, in
+    shot chunks (of each shard's block)."""
     S = survey.n_shots
+    n_dev = 1 if mesh is None else len(mesh)
+    survey = pad_survey(survey, n_dev)
     if use_kernels:
         plan, uidx = _cuda_plan(cfg, survey, das_w)
         src_z = survey.src_z + cfg.npml
@@ -322,24 +554,207 @@ def make_forward(cfg: SimConfig, survey: Survey, *, use_kernels: bool,
         geoms = survey_to_geoms(survey, cfg.npml, device=device, dtype=dtype)
         if das_w is not None:
             w = torch.as_tensor(np.asarray(das_w)).to(device, dtype)
-            geoms = geoms._replace(das_w=w.expand(S, *w.shape))
+            geoms = geoms._replace(das_w=w.expand(survey.n_shots, *w.shape))
 
-    @torch.no_grad()
-    def fwd(lam, mu, rho, stf):
+    def block(lam, mu, rho, stf, first):
+        """The data of shots first .. first + len(stf) of the survey."""
         out = []
-        for a, b in _chunks(S, shot_chunk):
+        for a, b in _chunks(stf.shape[0], shot_chunk):
+            g0, g1 = first + a, first + b
             if use_kernels:
                 syn = cuda_engine.forward_cuda_plan(
                     plan, lam, mu, rho, stf[a:b].contiguous(),
-                    src_z[a:b], src_x[a:b], rxz[a:b])
+                    src_z[g0:g1], src_x[g0:g1], rxz[g0:g1])
                 if uidx is not None:
-                    syn = _gather_union(syn, uidx[a:b].to(syn.device))
+                    syn = _gather_union(syn, uidx[g0:g1].to(syn.device))
                 out.append(syn)
             else:
-                g = ShotGeom(*(None if t is None else t[a:b]
+                g = ShotGeom(*(None if t is None else t[g0:g1].to(lam.device)
                                for t in geoms))
                 out.append(propagator.propagate_shots(cfg, lam, mu, rho,
                                                       stf[a:b], g))
         return torch.cat(out)
 
+    @torch.no_grad()
+    def fwd(lam, mu, rho, stf):
+        if mesh is None:
+            return block(lam, mu, rho, stf, 0)
+        stf = _pad_rows(stf, survey.n_shots - S)
+        blocks = _blocks(mesh, survey.n_shots)
+        out = _on_mesh(mesh, lambda i, dev: block(
+            lam.to(dev), mu.to(dev), rho.to(dev),
+            stf[blocks[i][0]:blocks[i][1]].to(dev), blocks[i][0]))
+        return torch.cat([o.to(mesh[0]) for o in out])[:S]
+
     return fwd
+
+
+def mesh_2d(n_shot: int, n_x: int, devices=None):
+    """A shot x domain mesh: n_shot rows of n_x devices (a tuple of
+    tuples), taken in order from `devices` (default: every CUDA device);
+    entries may repeat.  Shots split over the rows and the grid's x axis
+    over each row's devices (`make_dd_misfit`)."""
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    if len(devices) < n_shot * n_x:
+        raise ValueError(f"a {n_shot} x {n_x} mesh needs {n_shot * n_x} "
+                         f"devices, got {len(devices)}")
+    return tuple(tuple(devices[i * n_x:(i + 1) * n_x])
+                 for i in range(n_shot))
+
+
+# Ghost columns a block keeps on each side: the O(4) stencils' reach.
+HALO = 2
+
+
+def _x_blocks(nx: int, n_x: int):
+    """The owned columns [x0, x1) of each of n_x contiguous blocks."""
+    edges = [j * nx // n_x for j in range(n_x + 1)]
+    if min(b - a for a, b in zip(edges, edges[1:])) < 2 * HALO:
+        raise ValueError(f"{nx} columns do not split into {n_x} blocks of "
+                         f"at least {2 * HALO}")
+    return list(zip(edges, edges[1:]))
+
+
+def _cols(a, x0: int, x1: int):
+    """Columns [x0 - HALO, x1 + HALO) of a (..., nx), zeros past its
+    edges."""
+    lo, hi = max(x0 - HALO, 0), min(x1 + HALO, a.shape[-1])
+    return F.pad(a[..., lo:hi], (lo - x0 + HALO, x1 + HALO - hi))
+
+
+def _exchange(blocks):
+    """Each block's (S, nz, w + 2 HALO) field with its ghost columns
+    refreshed from its neighbours' owned edge columns (zeros at the grid's
+    edges, as the stencils' zero padding), on its own device."""
+    out = []
+    for j, a in enumerate(blocks):
+        zero = a.new_zeros(*a.shape[:-1], HALO)
+        left = (blocks[j - 1][..., -2 * HALO:-HALO].to(a.device) if j
+                else zero)
+        right = (blocks[j + 1][..., HALO:2 * HALO].to(a.device)
+                 if j + 1 < len(blocks) else zero)
+        out.append(torch.cat([left, a[..., HALO:-HALO], right], dim=-1))
+    return out
+
+
+def _dd_forward(cfg: SimConfig, row, mat: MatFields, cp, mask_f, stf,
+                geom: ShotGeom):
+    """The forward of the shots of one mesh row, its grid split into
+    len(row) column blocks, block j on row[j]: data (S, 4, R, nt) on
+    row[0], differentiable by autograd through the blocked steps.  Each
+    block steps its columns and HALO ghost columns on each side with
+    propagator's step functions on column slices of the whole grid's
+    material fields, CPML profiles and update mask; the ghosts are
+    refreshed after the stress update and the source (before the velocity
+    update reads the stresses) and after the velocity update (before the
+    next stress update and the recording read the velocities).  The source
+    goes to the block that owns its column; each block records the
+    receivers in its columns."""
+    S, R = geom.rec_z.shape
+    nt = cfg.nt
+    parts = []
+    for (x0, x1), dev in zip(_x_blocks(cfg.nx, len(row)), row):
+        w = x1 - x0 + 2 * HALO
+        col = lambda a: _cols(a, x0, x1).to(dev)
+        own_src = ((geom.src_x >= x0) & (geom.src_x < x1)).to(dev)
+        rx = geom.rec_x.to(dev)
+        parts.append(dict(
+            dev=dev,
+            mat=MatFields(*(col(m) for m in mat)),
+            cp=cp._replace(**{k: col(getattr(cp, k)).contiguous()
+                              for k in ("ikx", "ax", "bx", "ikx_h", "ax_h",
+                                        "bx_h")}, **{
+                k: getattr(cp, k).to(dev)
+                for k in ("ikz", "az", "bz", "ikz_h", "az_h", "bz_h")}),
+            mask=(mask_f[0].to(dev), col(mask_f[1])),
+            stf=stf.to(dev) * own_src[:, None].to(stf.dtype),
+            geom=ShotGeom(
+                src_z=geom.src_z.to(dev),
+                src_x=torch.where(own_src, geom.src_x.to(dev) - x0 + HALO,
+                                  HALO),
+                rxz=geom.rxz.to(dev), rec_z=geom.rec_z.to(dev),
+                rec_x=(rx - x0 + HALO).clamp(1, w - 2),
+                das_w=None if geom.das_w is None else geom.das_w.to(dev)),
+            own_rec=((rx >= x0) & (rx < x1)).to(stf.dtype)[:, None],
+            state=propagator.zero_state((S, cfg.nz, w), device=dev,
+                                        dtype=stf.dtype)))
+    recs = [torch.zeros((S, propagator.N_CHANNELS, R), device=row[0],
+                        dtype=stf.dtype)]
+    for it in range(nt - 1):
+        stress = []
+        for p in parts:
+            f, psi = p["state"]
+            (szz, sxx, sxz), (p1, p2, p3, p4) = propagator._stress_update(
+                f, psi, p["mat"], p["cp"], p["mask"], cfg)
+            szz, sxx = propagator._add_source(szz, sxx, p["stf"][:, it],
+                                              p["geom"], cfg)
+            stress.append((szz, sxx, sxz))
+            p["psi"] = Psi(p1, p2, p3, p4, *psi[4:])
+        stress = list(zip(*(_exchange(list(s)) for s in zip(*stress))))
+        vel = []
+        for p, (szz, sxx, sxz) in zip(parts, stress):
+            f2 = Fields(p["state"].f.vz, p["state"].f.vx, szz, sxx, sxz)
+            (vz, vx), (p5, p6, p7, p8) = propagator._velocity_update(
+                f2, p["psi"], p["mat"], p["cp"], p["mask"], cfg)
+            vel.append((vz, vx))
+            p["psi"] = Psi(*p["psi"][:4], p5, p6, p7, p8)
+        vel = list(zip(*(_exchange(list(v)) for v in zip(*vel))))
+        rec = None
+        for p, (szz, sxx, sxz), (vz, vx) in zip(parts, stress, vel):
+            f3 = Fields(vz, vx, szz, sxx, sxz)
+            p["state"] = propagator.State(f3, p["psi"])
+            r = (propagator._record(f3, p["geom"], cfg) * p["own_rec"]
+                 ).to(row[0])
+            rec = r if rec is None else rec + r
+        recs.append(rec)
+    return torch.stack(recs, dim=-1)
+
+
+def make_dd_misfit(cfg: SimConfig, mesh, channels: Sequence[str] = ("ett",)):
+    """The shot x domain loss on a `mesh_2d` mesh
+    (`sep2023_tpu/parallel.py::make_dd_misfit`):
+    loss(lam, mu, rho, stf, geoms, obs, weights).  The shots split over
+    the mesh rows, each row in a thread of its own; within a row the grid's
+    x axis splits into contiguous column blocks, one a device, which
+    exchange HALO ghost columns by hand every half step (`_dd_forward`;
+    the JAX package lets GSPMD insert them).  The material fields, the CPML
+    profiles and the update mask are computed on the whole grid and sliced.
+    Gradients come from autograd through the blocked steps, the material
+    fields' kept inside the interior as the boundary-saving adjoint keeps
+    them (`propagator.material_grads`, el_stress.cu:92): the exact gradient
+    of the discrete forward.  They equal the local loss's (that adjoint's)
+    everywhere but in rho's gradient in the 2 cells next to the interior's
+    edge, where the adjoint departs from the exact gradient (by 0.9426 of
+    its max on tests/test_torch_parallel_mesh.py's problem, which pins
+    it).  Like the JAX
+    package's, whose `dd` path runs its XLA engine, this path runs the
+    plain step on whatever device its mesh names, the one path of the
+    port on which the plain versions run on the card (no counted kernel
+    call: `cuda_engine.PLAIN_CALLS` does not move).  The shot count must
+    be a multiple of the row count."""
+    rows = [tuple(torch.device(d) for d in r) for r in mesh]
+    fn = default_shot_misfit(channels)
+
+    def loss(lam, mu, rho, stf, geoms, obs, weights):
+        inside = propagator._interior_mask(cfg, device=lam.device,
+                                           dtype=lam.dtype)
+        inside = (inside[0] * inside[1]) > 0
+        mat = MatFields(*(torch.where(inside, m, m.detach())
+                          for m in material_fields(lam, mu, rho)))
+        cp, mask_f = propagator._consts(cfg, device=lam.device,
+                                        dtype=lam.dtype)
+        blocks = _blocks(rows, stf.shape[0])
+
+        def run(i, dev):
+            a, b = blocks[i]
+            sl = lambda t: None if t is None else t[a:b]
+            syn = _dd_forward(cfg, rows[i], mat, cp, mask_f, sl(stf),
+                              ShotGeom(*(sl(g) for g in geoms)))
+            return (weights[a:b].to(dev) * fn(obs[a:b].to(dev), syn)).sum()
+
+        return _sum_in_order(_on_mesh([r[0] for r in rows], run))
+
+    return loss

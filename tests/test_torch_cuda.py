@@ -22,8 +22,11 @@ the fused reverse step): against plain, a second run bitwise, nt launches.
 The elastic and the acoustic shot sums (one body, csrc/shot_sum.cuh)
 bitwise equal to a plain loop over shots, with a per-shot stride that is a
 multiple of 4 floats and one that is not, and planes off 16-byte alignment.
-These mirror phases 3, 7-10, 12, 17, 19e, 20-23 and 26 of chip_smoke.py; they
-need a CUDA device and nvcc, and skip without a card:
+The kernels' sharded loss over a mesh that repeats the card against the
+unsharded loss (loss 1e-6, gradients 2e-5 of each max, exact launches, a
+second evaluation bitwise).
+These mirror phases 3, 7-10, 12, 17, 19e, 20-23, 26 and 29 of chip_smoke.py;
+they need a CUDA device and nvcc, and skip without a card:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
     python -m pytest --noconftest tests/test_torch_cuda.py -k sum_shots
@@ -32,7 +35,8 @@ import numpy as np
 import pytest
 import torch
 
-from sep2023_tpu_torch import imaging, propagator
+from sep2023_tpu_torch import (cli, imaging, medium, models, parallel,
+                               propagator)
 from sep2023_tpu_torch.ops import _build, cuda_acoustic, cuda_engine
 from sep2023_tpu_torch.testing import (AC_CASES, AC_INTERIOR,
                                        AC_TILE_EDGE_CASES, DOT_TOL,
@@ -602,3 +606,57 @@ def test_acoustic_sum_shots_bitwise(cuda, case):
         ref += per_shot[k]
     assert torch.equal(out, ref)
     assert bool(out_buf[off + n:].isnan().all())
+
+
+@pytest.mark.parametrize("n_shards,chunk", [(2, 0), (3, 2)],
+                         ids=["2 shards", "3 shards chunked by 2"])
+def test_sharded_gradient_matches_unsharded(cuda, n_shards, chunk):
+    """make_cuda_sharded_misfit over a mesh that repeats the card, the 9
+    shots padded to a multiple of it, against make_cuda_misfit unsharded
+    (phase 29 of chip_smoke.py): the loss within 1e-6, the gradients of
+    lam, mu, rho and stf within 2e-5 of each one's max, per shard and chunk
+    nt forward launches with strips and nt backward launches, no plain
+    call, and a second evaluation bitwise equal to the first."""
+    cfg, survey, _, stf = cli.benchmark_problem(nz=61, nx=101, nt=601,
+                                                device=cuda)
+    vp, vs, rho = models.anomaly_vp_vs_rho(61, 101)
+    pad = lambda a: torch.as_tensor(medium.pad_model_np(a, cfg.npml),
+                                    device=cuda).float()
+    lam, mu, rho = (a.contiguous() for a in
+                    medium.Medium(pad(vp), pad(vs), pad(rho)).to_lame())
+    stf = stf.contiguous()
+    S = survey.n_shots
+    obs = parallel.make_forward(cfg, survey, use_kernels=True, device=cuda)(
+        (lam * 1.03).contiguous(), mu, rho, stf)
+    w = torch.ones(S, device=cuda)
+
+    def value_and_grad(loss, obs, w, n_pad=0):
+        p = [a.clone().requires_grad_() for a in (lam, mu, rho, stf)]
+        val = loss(*p[:3], parallel._pad_rows(p[3], n_pad), obs, w)
+        return val.detach(), torch.autograd.grad(val, p)
+
+    ref_val, ref_grads = value_and_grad(
+        parallel.make_cuda_misfit(cfg, survey), obs, w)
+    mesh = (cuda,) * n_shards
+    geoms = parallel.survey_to_geoms(survey, cfg.npml, device=cuda)
+    _, _, obs_p, w_p, _ = parallel.pad_shots(stf, geoms, obs, w, n_shards)
+    survey_p = parallel.pad_survey(survey, n_shards)
+    loss = parallel.make_cuda_sharded_misfit(cfg, survey_p, mesh,
+                                             shot_chunk=chunk)
+    n_pad = survey_p.n_shots - S
+    before = (cuda_engine.LAUNCHES_STRIPS, cuda_engine.LAUNCHES_BWD,
+              sum(cuda_engine.PLAIN_CALLS.values()))
+    val, grads = value_and_grad(loss, obs_p, w_p, n_pad)
+    torch.cuda.synchronize()
+    chunks = len(parallel._chunks(survey_p.n_shots // n_shards, chunk))
+    assert (cuda_engine.LAUNCHES_STRIPS - before[0],
+            cuda_engine.LAUNCHES_BWD - before[1],
+            sum(cuda_engine.PLAIN_CALLS.values()) - before[2]) == (
+        cfg.nt * n_shards * chunks, cfg.nt * n_shards * chunks, 0)
+    assert float((val - ref_val).abs() / ref_val.abs()) <= 1e-6
+    for name, a, b in zip(("lam", "mu", "rho", "stf"), grads, ref_grads):
+        assert float(b.abs().max()) > 0, name
+        assert float((a - b).abs().max() / b.abs().max()) <= 2e-5, name
+    val2, grads2 = value_and_grad(loss, obs_p, w_p, n_pad)
+    assert torch.equal(val, val2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2))

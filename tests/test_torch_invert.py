@@ -9,12 +9,11 @@
 * cli invert --device cpu --x64 at the size of tests/test_cli.py's TINY:
   its first misfit equals the JAX package's `invert` on the same arguments
   to 1e-10, and its loss.txt trajectory to 1e-6; --generate_data, then a
-  run that loads the written data; the one option that is not ported
-  (shot sharding) raises NotImplementedError naming its ROADMAP item.  The
-  other options of `invert` are held to the JAX package in
-  tests/test_torch_invert_*.py (--optimizer ondevice in
-  tests/test_torch_invert_ondevice.py, --engine in
-  tests/test_torch_invert_engine.py).
+  run that loads the written data.  The other options of `invert` are
+  held to the JAX package in tests/test_torch_invert_*.py (--optimizer
+  ondevice in tests/test_torch_invert_ondevice.py, --engine in
+  tests/test_torch_invert_engine.py, --n-devices in
+  tests/test_torch_invert_sharded.py).
 """
 import os
 
@@ -219,15 +218,6 @@ def test_invert_generate_then_load(tmp_path, capsys):
                       str(tmp_path / "b")])
     # the Shot files hold float32: the loaded run is close, not equal
     assert loaded["misfit"] == pytest.approx(fresh["misfit"], rel=1e-3)
-
-
-@pytest.mark.parametrize("flags,item", [
-    (["--n-devices", "2"], "M10"),
-])
-def test_unported_invert_options_raise(tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(["invert", *TINY, "--device", "cpu", "--exp-name",
-                  str(tmp_path), *flags])
 
 
 def test_invert_x64_needs_the_cpu(tmp_path):

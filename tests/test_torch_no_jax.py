@@ -298,15 +298,34 @@ def test_gradient_entries_off_cpu_raise(monkeypatch, entry, case, exc,
             prop.apply_gradient(model, np.zeros((2, 4, sv.n_rec, cfg.nt)))
 
 
-def test_apply_gradient_one_device_only():
-    model = api.Model(nx=22, nz=16, dx=20.0, dz=20.0, nt=12, dt=0.002,
-                      nPml=4, vp=np.full((16, 22), 3000.0),
-                      vs=np.full((16, 22), 1700.0),
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["kernels' plain versions", "plain propagator"])
+def test_apply_gradient_sharded_matches_one_device(dtype):
+    """apply_gradient(n_devices=2) on the CPU, the 2 shots over 2 CPU
+    shards, equals n_devices=1 (tests/test_api.py::
+    test_apply_gradient_sharded_matches_local): through the kernels' plain
+    versions in float32 (loss 1e-6, gradients 2e-5 of the max: the shards'
+    sums group the float32 shots otherwise), the plain propagator in
+    float64 (1e-10 and 1e-8)."""
+    loss_tol, grad_tol = ((1e-6, 2e-5) if dtype == torch.float32
+                          else (1e-10, 1e-8))
+    vp = np.full((16, 22), 3000.0)
+    vp[6:10, 8:14] = 3200.0
+    model = api.Model(nx=22, nz=16, dx=20.0, dz=20.0, nt=40, dt=0.002,
+                      nPml=4, vp=vp, vs=vp / np.sqrt(3.0),
                       rho=np.full((16, 22), 2500.0))
     prop = api.ElasticPropagator(model, Survey(**SURVEYS["row"]),
-                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="M10"):
-        prop.apply_gradient(model, np.zeros((2, 4, 10, 12)), n_devices=2)
+                                 device="cpu", dtype=dtype)
+    obs = prop.apply_forward()
+    init = api.Model(**{**model.__dict__, "vp": np.full_like(vp, 3000.0)})
+    one = prop.apply_gradient(init, obs, n_devices=1)
+    two = prop.apply_gradient(init, obs, n_devices=2)
+    assert one["misfit"] > 0
+    assert two["misfit"] == pytest.approx(one["misfit"], rel=loss_tol)
+    for k in ("grad_vp", "grad_vs", "grad_rho", "grad_stf"):
+        a, b = two[k], one[k]
+        assert a.shape == b.shape and np.abs(b).max() > 0, k
+        assert np.abs(a - b).max() <= grad_tol * np.abs(b).max(), k
 
 
 def test_cli_invert_on_cuda_without_a_card_raises(tmp_path, monkeypatch):
