@@ -65,9 +65,19 @@ over 2 and 4 shards, chunked inside the shards, at 814x2064 (2 shots,
 nt=601), through cli.build_stage_loss with per-trace conditioning and on a
 ragged survey, each with exact launch counts (per shard a forward with
 strips and a backward), no plain call and a second evaluation bitwise
-equal; make_forward(mesh=) bit for bit; and the shot x domain loss of a
-2 x 2 mesh against the plain local loss.  Its seconds are those of shards
-sharing one card, not a scaling.
+equal; make_forward(mesh=) bit for bit; and the shot x domain loss, the
+boundary-saving adjoint on column blocks, against the plain local loss on
+the whole grid, on a 2 x 2 mesh and at 814x2064, nt=1001, 2 shots on a
+1 x 2 mesh, with both losses' peak memory.  Its seconds are those of
+shards sharing one card, not a scaling.
+
+The plain PyTorch engine on the card, where the JAX package runs its XLA
+engine on its accelerator (phase 30): `invert --x64`, `invert --engine
+xla` and `rtm --x64` on the card against the CPU, ElasticPropagator in
+float64 on the card against the CPU, the float32 kernels' loss and
+gradients at the reference workload against the float64 plain answer on
+the card, and a survey no plan takes refused under --engine auto and run
+under --engine xla.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 3,7,8,9,10,20   # those phases only
@@ -77,6 +87,7 @@ sharing one card, not a scaling.
     python3 chip_smoke.py --phases 24,25           # rock scale, conditioned
     python3 chip_smoke.py --phases 26,27,28        # the examples' paths
     python3 chip_smoke.py --phases 29              # shot sharding
+    python3 chip_smoke.py --phases 30              # the plain engine
 
 Needs one CUDA device and nvcc; exits nonzero, printing no result, without
 them.  Imports neither jax nor sep2023_tpu.  The last line of standard
@@ -86,7 +97,9 @@ record of every kernel (launches on its main path, error, times, bound).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
+import io
 import json
 import os
 import re
@@ -108,16 +121,19 @@ from sep2023_tpu_torch.ops import signal as sg
 from sep2023_tpu_torch.ops.misfit import l2_misfit, make_preprocessed_l2
 from sep2023_tpu_torch.testing import (AC_CASES, AC_INTERIOR,
                                        AC_TILE_EDGE_CASES, DOT_TOL,
-                                       FIBER_CASES, GRAD_TOL, RECON_RATIO,
+                                       FIBER_CASES, GRAD_TOL,
+                                       PLAIN_DEVICE_TOL, RECON_RATIO,
                                        ROW_CASES, TILE_EDGE_CASES,
-                                       TILE_EDGE_SEED,
+                                       TILE_EDGE_SEED, TINY_INVERT,
                                        ac_perturbed_cotangent, ac_problem,
                                        ac_row_problem, ac_tile_edge_problem,
-                                       acoustic_args,
-                                       adjoint_gap, fiber_problem,
-                                       grad_errors, perturbed_cotangent,
-                                       reconstruction_residual, row_problem,
-                                       strip_errors, tile_edge_problem)
+                                       acoustic_args, adjoint_gap,
+                                       api_problem, fiber_problem,
+                                       grad_errors, invert_run,
+                                       perturbed_cotangent,
+                                       reconstruction_residual, rel_diff,
+                                       row_problem, strip_errors,
+                                       tile_edge_problem)
 from sep2023_tpu_torch.testing import max_rel as rel_err
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -482,12 +498,7 @@ def phase_main_path(cfg, plain_ms):
 
 
 def phase_api(dev):
-    nz, nx = 44, 60
-    vp, vs, rho = models.anomaly_vp_vs_rho(nz, nx)
-    model = api.Model(nx=nx, nz=nz, dx=20.0, dz=20.0, nt=260, dt=0.002,
-                      nPml=10, vp=vp, vs=vs, rho=rho)
-    survey = Survey(src_z=np.array([1, 1]), src_x=np.array([15, 45]),
-                    rec_z=np.full(40, 38), rec_x=np.arange(10, 50))
+    model, survey, _ = api_problem()
     before = cuda_engine.LAUNCHES
     out = api.ElasticPropagator(model, survey, device=dev).apply_forward()
     check(cuda_engine.LAUNCHES > before, "apply_forward skipped the kernel")
@@ -2313,13 +2324,14 @@ def phase_invert_ondevice(cfg, rs, scipy_per_eval):
 # unsharded ones on the same inputs (float32; the shards' sums group the
 # shots otherwise), the JAX package's production-shape rule
 # (__graft_entry__.py:183-189); the shot x domain loss against the plain
-# local loss (autograd through the blocked steps against the boundary-saving
-# adjoint) on the whole grid, but rho's gradient on the interior less 2
-# cells, where that adjoint departs from the exact gradient.
+# local loss (the same boundary-saving adjoint, on column blocks and on the
+# whole grid) on the whole grid, and the growth of its peak memory over the
+# local loss's.
 SHARD_LOSS_TOL = 1e-6
 SHARD_GRAD_TOL = 2e-5
 DD_LOSS_TOL = 1e-5
 DD_GRAD_TOL = 5e-4
+DD_PEAK_RATIO = 1.5
 
 
 def _value_and_grad(loss, model, rest, n_pad=0):
@@ -2514,14 +2526,66 @@ def phase_sharded(dev):
     return out
 
 
-def _dd_case(dev, nz=92, nx=132, nt=300, S=4):
-    """Phase 29f: make_dd_misfit on a 2 x 2 mesh of the card against the
-    plain local loss (make_local_misfit) on the card, 4 shots at 92x132
-    (padded), nt=300: the one path whose plain step runs on the card (no
-    counted kernel and no counted plain call).  Gradients on the whole
-    grid but rho's, on the interior less 2 cells; rho's largest difference
-    in those 2 cells is printed."""
-    npml = 16
+def _dd_against_local(label, cfg, geoms, model, obs, mesh):
+    """One value and gradient of make_dd_misfit on `mesh` against the plain
+    local loss (make_local_misfit) on the card, on the whole grid: the
+    plain step on the card, so no kernel launch and one
+    PLAIN_CALLS["propagate_dd"] a mesh row.  Each one's peak memory is
+    torch.cuda.max_memory_allocated since a reset just before it, and its
+    growth over what was allocated then."""
+    S = model[3].shape[0]
+    w = torch.ones(S, device=obs.device)
+
+    def measured(loss):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        reset_counts()
+        val, grads, seconds = _value_and_grad(
+            lambda l, u, r, s, *a: loss(l, u, r, s, geoms, *a), model,
+            (obs, w))
+        counts, plain_calls = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        return val, grads, seconds, counts, plain_calls, peak, peak - before
+
+    ref = measured(parallel.make_local_misfit(cfg))
+    val, grads, seconds, counts, plain_calls, peak, grown = measured(
+        parallel.make_dd_misfit(cfg, mesh))
+    check(counts_are(counts, {}) and plain_calls == {
+        **{k: 0 for k in plain_calls}, "propagate_dd": len(mesh)},
+        f"{label}: launches {counts}, plain calls {plain_calls}")
+    loss_err, errs = _held(label, val, grads, ref[0], ref[1], DD_LOSS_TOL,
+                           DD_GRAD_TOL)
+    ratio = grown / ref[6]
+    check(ratio <= DD_PEAK_RATIO, f"{label}: peak memory grew {grown} B, "
+          f"{ratio:.3f}x the local loss's {ref[6]} B > {DD_PEAK_RATIO}")
+    rows, cols = len(mesh), len(mesh[0])
+    print(f"{label} {cfg.nz}x{cfg.nx}, nt={cfg.nt}, {S} shots on a {rows} x "
+          f"{cols} mesh of the card ({rows} shot row(s), {cols} column "
+          f"blocks of about {cfg.nx // cols} with 2 ghost columns a side): "
+          f"loss {float(val):.6e}, rel err {loss_err:.3e} <= {DD_LOSS_TOL} "
+          f"against the plain local loss; gradients (lam, mu, rho, stf) "
+          f"{[f'{e:.3e}' for e in errs]} <= {DD_GRAD_TOL} of each max on "
+          f"the whole grid; peak memory {peak / 1e9:.3f} GB, "
+          f"{grown / 1e9:.3f} GB above the inputs, against the local loss's "
+          f"{ref[5] / 1e9:.3f} GB, {ref[6] / 1e9:.3f} GB above "
+          f"({ratio:.3f}x <= {DD_PEAK_RATIO}); {seconds:.3f} s a value and "
+          f"gradient against {ref[2]:.3f} s for the local loss; no kernel "
+          f"launch, plain calls {plain_calls}")
+    return dict(seconds=seconds, local_seconds=ref[2], loss_err=loss_err,
+                grad_errs=errs, peak_bytes=peak, local_peak_bytes=ref[5],
+                grown_bytes=grown, local_grown_bytes=ref[6])
+
+
+def _dd_case(dev):
+    """Phase 29f: make_dd_misfit, the boundary-saving adjoint on column
+    blocks, against the plain local loss on the card on the whole grid:
+    4 shots at 92x132 (padded), nt=300, on a 2 x 2 mesh of the card; then
+    2 shots at 814x2064, nt=1001, on a 1 x 2 mesh, the size the shot x
+    domain split is for, which autograd through every block step could not
+    hold (about 64 planes a step)."""
+    nz, nx, nt, S, npml = 92, 132, 300, 4, 16
     cfg = SimConfig(nz=nz, nx=nx, dz=10.0, dx=10.0, nt=nt, dt=0.001,
                     f0=15.0, npml=npml)
     pz, px = nz - 2 * npml, nx - 2 * npml
@@ -2538,39 +2602,272 @@ def _dd_case(dev, nz=92, nx=132, nt=300, S=4):
     stf = torch.as_tensor(ricker(cfg.f0, nt, cfg.dt), device=dev).to(
         torch.float32).expand(S, nt).contiguous()
     geoms = parallel.survey_to_geoms(survey, npml, device=dev)
-    fwd = parallel.make_forward(cfg, survey, use_kernels=False, device=dev)
-    obs = fwd((lam * 1.03).contiguous(), mu, rho, stf)
-    w = torch.ones(S, device=dev)
-    model = (lam, mu, rho, stf)
-    local = parallel.make_local_misfit(cfg)
-    ref = _value_and_grad(lambda l, u, r, s, *a: local(l, u, r, s, geoms, *a),
-                          model, (obs, w))
-    mesh = parallel.mesh_2d(2, 2, devices=[dev] * 4)
-    dd = parallel.make_dd_misfit(cfg, mesh)
+    obs = parallel.make_forward(cfg, survey, use_kernels=False, device=dev)(
+        (lam * 1.03).contiguous(), mu, rho, stf)
+    out = {"small": _dd_against_local(
+        "[29f shot x domain]", cfg, geoms, (lam, mu, rho, stf), obs,
+        parallel.mesh_2d(2, 2, devices=[dev] * 4))}
+    del obs
+
+    cfg_l, rs_l, (lam_l, mu_l, rho_l, stf_l, *_) = large_problem(
+        814, 2064, 1001, "row", dev)
+    p = cfg_l.npml
+    survey_l = Survey(src_z=np.full(2, 1),
+                      src_x=np.array([cfg_l.nx // 3, 2 * cfg_l.nx // 3]) - p,
+                      rec_z=np.full(rs_l.n_rec, rs_l.rec_row - p),
+                      rec_x=np.arange(rs_l.n_rec) + rs_l.rec_x0 - p)
+    stf_l = stf_l.expand(2, cfg_l.nt).contiguous()
+    obs_l = parallel.make_forward(cfg_l, survey_l, use_kernels=True,
+                                  device=dev)(lam_l * 1.03, mu_l, rho_l,
+                                              stf_l)
+    out["814x2064"] = _dd_against_local(
+        "[29f shot x domain, 814x2064]", cfg_l,
+        parallel.survey_to_geoms(survey_l, p, device=dev),
+        (lam_l, mu_l, rho_l, stf_l), obs_l,
+        parallel.mesh_2d(1, 2, devices=[dev] * 2))
+    del obs_l
+    torch.cuda.empty_cache()
+    return out
+
+
+# Phase 30's bounds on the float32 kernels' loss and gradients (lam, mu,
+# rho on the interior less 2 cells, stf) against the float64 plain answer
+# at the reference workload: about 5x and 10x the first measurement
+# (1.9e-5; 1.0e-5 to 5.4e-5 of each max; PERF.md, PR 15).
+F64_LOSS_TOL = 1e-4
+F64_GRAD_TOL = 5e-4
+
+
+def _captured(fn):
+    """(fn()'s result, what it printed), the print passed on as well."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    sys.stdout.write(buf.getvalue())
+    return out, buf.getvalue()
+
+
+def _no_kernel(label, counts, plain_calls, *names):
+    """No kernel launched and each plain engine call in `names` made."""
+    check(counts_are(counts, {}) and all(plain_calls[k] > 0 for k in names),
+          f"{label}: launches {counts}, plain calls {plain_calls}")
+
+
+def _plain_invert(tmp, tag, argv):
+    """invert_run of argv on the card, counted, and of argv on the CPU:
+    (loss.txt error, largest model error, engine line seen, counts,
+    plain calls)."""
     reset_counts()
-    val, grads, seconds = _value_and_grad(
-        lambda l, u, r, s, *a: dd(l, u, r, s, geoms, *a), model, (obs, w))
+    (hist, model, _), printed = _captured(lambda: invert_run(
+        argv, os.path.join(tmp, tag + "_card")))
     counts, plain_calls = read_counts()
-    check_counts("[29f shot x domain]", counts, {}, plain_calls)
-    n = npml + 2
-    rho_inner = lambda g: [*g[:2], g[2][n:-n, n:-n], g[3]]
-    loss_err, errs = _held("[29f shot x domain]", val, rho_inner(grads),
-                           ref[0], rho_inner(ref[1]), DD_LOSS_TOL,
-                           DD_GRAD_TOL)
-    ring = float((grads[2] - ref[1][2]).abs().max() / ref[1][2].abs().max())
-    print(f"[29f shot x domain] {nz}x{nx}, nt={nt}, {S} shots on a 2 x 2 "
-          f"mesh of the card (2 shot rows, 2 column blocks of {nx // 2} "
-          f"with 2 ghost columns a side): loss {float(val):.6e}, rel err "
-          f"{loss_err:.3e} <= {DD_LOSS_TOL} against the plain local loss; "
-          f"gradients (lam, mu, rho, stf) {[f'{e:.3e}' for e in errs]} <= "
-          f"{DD_GRAD_TOL} of each max on the whole grid (rho's on the "
-          f"interior less 2 cells; in those 2 cells {ring:.3e}, where the "
-          f"boundary-saving adjoint departs from the exact gradient); "
-          f"{seconds:.3f} s a value and gradient (the plain step, autograd "
-          f"through every block step), {ref[2]:.3f} s the plain local loss; "
-          f"no kernel launch and no counted plain call")
-    return dict(seconds=seconds, local_seconds=ref[2], loss_err=loss_err,
-                grad_errs=errs, rho_ring_err=ring)
+    hist_c, model_c, _ = invert_run([*argv, "--device", "cpu"],
+                                    os.path.join(tmp, tag + "_cpu"))
+    check(hist.shape == hist_c.shape and len(hist) >= 1,
+          f"{tag}: loss.txt {hist.shape} on the card, {hist_c.shape} on the "
+          "CPU")
+    return (rel_diff(hist[:, 1], hist_c[:, 1]),
+            max(rel_diff(model[k], model_c[k]) for k in model_c),
+            "engine: plain PyTorch (cuda:0, float64)" in printed,
+            counts, plain_calls)
+
+
+def phase_plain_engine(dev):
+    """Phase 30: the plain PyTorch engine on the card, where the JAX
+    package runs its XLA engine on its accelerator.  (a) `invert --x64`
+    and `invert --engine xla --x64` at the CPU tests' size against the
+    same runs with --device cpu (loss.txt and the model to
+    PLAIN_DEVICE_TOL), the engine line naming cuda:0 and float64, no kernel
+    launch; `invert --engine xla` (float32) --generate_data against the
+    CPU's data; `rtm --x64` (both physics) against the CPU; (b) at the
+    reference workload one float64 value and gradient of the plain loss on
+    the card against the float32 kernels' (make_cuda_misfit), held to
+    F64_LOSS_TOL and F64_GRAD_TOL; (c) ElasticPropagator(dtype=float64,
+    device='cuda').apply_gradient against device='cpu'; (d) `invert`
+    with a survey no plan takes raises under --engine auto, naming
+    --engine xla, and --engine xla runs it."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, flags in (("x64", ["--x64"]),
+                           ("xla_x64", ["--engine", "xla", "--x64"])):
+            t0 = time.perf_counter()
+            loss_err, model_err, named, counts, plain_calls = _plain_invert(
+                tmp, tag, [*TINY_INVERT, *flags])
+            label = f"[30a invert {' '.join(flags)}]"
+            _no_kernel(label, counts, plain_calls, "propagate")
+            check(named and loss_err <= PLAIN_DEVICE_TOL
+                  and model_err <= PLAIN_DEVICE_TOL,
+                  f"{label} on the card against the CPU: loss.txt "
+                  f"{loss_err}, model {model_err} (tol {PLAIN_DEVICE_TOL}); "
+                  f"engine line named: {named}")
+            print(f"{label} --device cuda against --device cpu at "
+                  f"{' '.join(TINY_INVERT)}: loss.txt {loss_err:.3e}, model "
+                  f"{model_err:.3e} <= {PLAIN_DEVICE_TOL} relative; engine "
+                  f"line 'plain PyTorch (cuda:0, float64)'; no kernel "
+                  f"launch; plain calls {plain_calls}; both runs "
+                  f"{time.perf_counter() - t0:.1f} s")
+            out[tag] = (loss_err, model_err)
+
+        # float32 on the plain engine: the observed data of both devices
+        data = {}
+        for device in ("cuda", "cpu"):
+            d = os.path.join(tmp, "xla32_" + device)
+            reset_counts()
+            (_, printed) = _captured(lambda: cli.main(
+                ["invert", *TINY_INVERT, "--engine", "xla", "--device",
+                 device, "--exp-name", d, "--generate_data", "--data-dir",
+                 d]))
+            if device == "cuda":
+                counts, plain_calls = read_counts()
+                _no_kernel("[30a invert --engine xla]", counts, plain_calls,
+                           "propagate")
+                check("engine: plain PyTorch (cuda:0, float32)" in printed,
+                      "[30a invert --engine xla]: no engine line")
+            survey = Survey.from_json(os.path.join(d, "survey_file.json"))
+            data[device] = sio.read_shots_survey(d, survey, 80)
+        err = max(rel_diff(data["cuda"][:, c], data["cpu"][:, c])
+                  for c in range(4))
+        check(err <= TOL, f"[30a invert --engine xla] data on the card "
+              f"against the CPU {err} > {TOL}")
+        print(f"[30a invert --engine xla] float32 --generate_data on the "
+              f"card against the CPU: {err:.3e} <= {TOL} of each channel's "
+              "max; engine line 'plain PyTorch (cuda:0, float32)'; no "
+              "kernel launch")
+
+        for physics, calls in (("acoustic", ("propagate_acoustic",
+                                             "rtm_image_time")),
+                               ("elastic", ("propagate",
+                                            "source_illumination"))):
+            argv = ["rtm", "--nz", "30", "--nx", "44", "--nt", "220",
+                    "--npml", "8", "--x64", "--physics", physics]
+            reset_counts()
+            (img, ill, peak), printed = _captured(lambda: cli.main(
+                [*argv, "--out", os.path.join(tmp, physics + ".npz")]))
+            counts, plain_calls = read_counts()
+            label = f"[30a rtm --x64 --physics {physics}]"
+            _no_kernel(label, counts, plain_calls, *calls)
+            img_c, ill_c, peak_c = cli.main(
+                [*argv, "--device", "cpu", "--out",
+                 os.path.join(tmp, physics + "_cpu.npz")])
+            errs = (rel_diff(img, img_c), rel_diff(ill, ill_c))
+            check("engine: plain PyTorch (cuda:0, float64)" in printed
+                  and max(errs) <= PLAIN_DEVICE_TOL and peak == peak_c,
+                  f"{label} on the card against the CPU: image, "
+                  f"illumination {errs}, peak rows {peak}, {peak_c}")
+            print(f"{label} on the card against the CPU: image "
+                  f"{errs[0]:.3e}, illumination {errs[1]:.3e} <= "
+                  f"{PLAIN_DEVICE_TOL}; muted-image peak row {peak} on both; "
+                  f"no kernel launch; plain calls {plain_calls}")
+
+        out["f64 gradient"] = _f64_gradient(dev)
+
+        model, survey, init = api_problem()
+        obs = api.ElasticPropagator(model, survey, device="cpu",
+                                    dtype=torch.float64).apply_forward()
+        reset_counts()
+        card = api.ElasticPropagator(model, survey, device=dev,
+                                     dtype=torch.float64)
+        got = card.apply_gradient(init, obs)
+        counts, plain_calls = read_counts()
+        _no_kernel("[30c api]", counts, plain_calls, "propagate")
+        ref = api.ElasticPropagator(model, survey, device="cpu",
+                                    dtype=torch.float64).apply_gradient(
+            init, obs)
+        errs = [abs(got["misfit"] - ref["misfit"]) / ref["misfit"]] + [
+            rel_diff(got[k], ref[k])
+            for k in ("grad_vp", "grad_vs", "grad_rho", "grad_stf")]
+        check(card.rs is None and max(errs) <= PLAIN_DEVICE_TOL,
+              f"[30c api] float64 on the card against the CPU: {errs}")
+        print(f"[30c api] ElasticPropagator(dtype=torch.float64, "
+              f"device='cuda').apply_gradient against device='cpu': misfit, "
+              f"vp, vs, rho, stf {[f'{e:.3e}' for e in errs]} <= "
+              f"{PLAIN_DEVICE_TOL}; no kernel launch; plain calls "
+              f"{plain_calls}")
+
+        # a survey no plan takes: the receiver row and two grid corners
+        nz, nx, npml = 28, 48, 8
+        corners = Survey(src_z=np.ones(3), src_x=np.array([10, 20, 30]),
+                         rec_z=np.array([22] * 28 + [-npml, nz + npml - 1]),
+                         rec_x=np.array(list(range(10, 38))
+                                        + [-npml, nx + npml - 1]))
+        path = os.path.join(tmp, "corners.json")
+        corners.to_json(path)
+        argv = ["invert", *TINY_INVERT, "--survey-json", path, "--exp-name",
+                os.path.join(tmp, "corners")]
+        try:
+            cli.main(argv)
+            raised = ""
+        except ValueError as e:
+            raised = str(e)
+        check("--engine xla" in raised, f"[30d] --engine auto on a survey no "
+              f"plan takes: {raised!r}")
+        reset_counts()
+        d = os.path.join(tmp, "corners_data")
+        cli.main([*argv, "--engine", "xla", "--generate_data", "--data-dir",
+                  d])
+        counts, plain_calls = read_counts()
+        _no_kernel("[30d]", counts, plain_calls, "propagate")
+        shots = sio.read_shots_survey(d, corners, 80)
+        check(np.isfinite(shots).all() and np.abs(shots[:, 3]).max() > 0,
+              "[30d] --engine xla data not finite or silent")
+        print(f"[30d] --engine auto on a survey no plan takes raised: "
+              f"{raised!r}; --engine xla ran it on the card "
+              f"(--generate_data, data {shots.shape}, finite; no kernel "
+              "launch)")
+    return out
+
+
+def _f64_gradient(dev):
+    """Phase 30b: at the reference workload one value and gradient of the
+    plain loss (make_local_misfit) in float64 on the card against the
+    float32 kernels' (make_cuda_misfit) on the same inputs: the loss's
+    relative error and each gradient's largest error over its max (lam, mu,
+    rho on the interior less 2 cells, stf on all of it)."""
+    cfg, survey, _, stf = cli.benchmark_problem(device=dev)
+    stf = (stf * sg.taper_window(cfg.nt, cfg.dt, ratio=0.001, device=dev)
+           ).contiguous()
+    _, _, (lam, mu, rho, *_) = reference_problem(dev)
+    S = survey.n_shots
+    obs = parallel.make_forward(cfg, survey, use_kernels=True, device=dev)(
+        (lam * 1.03).contiguous(), mu, rho, stf)
+    w = torch.ones(S, device=dev)
+    kernels = parallel.make_cuda_misfit(cfg, survey)
+    model = (lam, mu, rho, stf)
+    _value_and_grad(kernels, model, (obs, w))  # warm
+    val, grads, seconds = _value_and_grad(kernels, model, (obs, w))
+    geoms = parallel.survey_to_geoms(survey, cfg.npml, device=dev,
+                                     dtype=torch.float64)
+    local = parallel.make_local_misfit(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    val64, grads64, seconds64 = _value_and_grad(
+        lambda l, u, r, s, *a: local(l, u, r, s, geoms, *a),
+        tuple(a.double() for a in model), (obs.double(), w.double()))
+    counts, plain_calls = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _no_kernel("[30b]", counts, plain_calls, "propagate")
+    n = cfg.npml + 2
+    inner = lambda g: [g[0][n:-n, n:-n], g[1][n:-n, n:-n], g[2][n:-n, n:-n],
+                       g[3]]
+    loss_err = float((val.double() - val64).abs() / val64.abs())
+    errs = [float((a.double() - b).abs().max() / b.abs().max())
+            for a, b in zip(inner(grads), inner(grads64))]
+    print(f"[30b float64 plain on the card] reference workload ({S} shots, "
+          f"{cfg.nz}x{cfg.nx}, nt={cfg.nt}): float32 kernels against the "
+          f"float64 plain answer: loss {float(val64):.9e}, rel err "
+          f"{loss_err:.3e} <= {F64_LOSS_TOL}; gradients (lam, mu, rho on the "
+          f"interior less 2, stf) {[f'{e:.3e}' for e in errs]} <= "
+          f"{F64_GRAD_TOL} of each max; {seconds64:.3f} s the float64 value "
+          f"and gradient ({seconds:.3f} s the kernels'), peak memory "
+          f"{peak / 1e9:.3f} GB; no kernel launch; plain calls "
+          f"{plain_calls}")
+    check(np.isfinite(loss_err) and loss_err <= F64_LOSS_TOL
+          and all(np.isfinite(errs)) and max(errs) <= F64_GRAD_TOL,
+          f"[30b] float32 kernels against float64: loss {loss_err}, "
+          f"gradients {errs}")
+    return dict(loss_err=loss_err, grad_errs=errs, seconds=seconds64,
+                kernel_seconds=seconds, peak_bytes=peak)
 
 
 def kernel_record(results):
@@ -2795,6 +3092,7 @@ def main(argv=None):
         (28, lambda: phase_invert_ondevice(
             ref_cfg, ref_rs, results[11][1] if 11 in results else None)),
         (29, lambda: phase_sharded(dev)),
+        (30, lambda: phase_plain_engine(dev)),
         (6, lambda: phase_profile(dev)),
     ]
     only = {int(k) for k in args.phases.split(",") if k.strip()}

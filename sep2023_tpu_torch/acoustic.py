@@ -284,6 +284,9 @@ class _PropagateAcoustic(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cfg, geom, lam, rho, stf):
+        # imported here: the CUDA engines import this module
+        from sep2023_tpu_torch.ops.cuda_engine import count_plain
+        count_plain("propagate_acoustic")
         if not any(ctx.needs_input_grad[2:]):
             return _forward(cfg, lam, rho, stf, geom)
         data, final, strips = _forward(cfg, lam, rho, stf, geom,
@@ -341,6 +344,8 @@ def rtm_image_time_shots(cfg: SimConfig, vp, rho, stf, geoms: AcGeom,
     the forward pressure reconstructed by boundary saving, the adjoint
     pressure propagated by the step's transpose with the data residual
     (S, 3, R, nt) injected at the receivers."""
+    from sep2023_tpu_torch.ops.cuda_engine import count_plain
+    count_plain("rtm_image_time")
     lam = rho * vp ** 2
     _, final, strips = _forward(cfg, lam, rho, stf, geoms, save_bnd=True)
     shape = (stf.shape[0], cfg.nz, cfg.nx)

@@ -42,9 +42,10 @@ class ElasticPropagator:
     A float32 survey that fits a plan (a receiver row, a multi-row spread,
     a column, a fiber, a ragged union: `parallel._cuda_plan`) runs
     through `cuda_engine`: the CUDA kernels on a CUDA device, their plain
-    versions on the CPU.  On the CPU any other survey or dtype runs the
-    plain propagator, the counterpart of the JAX package's XLA engine; on
-    any other device it raises, since the kernels cannot take it.
+    versions on the CPU.  Float64 runs the plain propagator, the
+    counterpart of the JAX package's XLA engine, on the device named (the
+    card too), and so does on the CPU a float32 survey no plan takes; on
+    another device such a survey raises, since the kernels cannot take it.
     `self.rs` is the planned RowSurvey or FiberSurvey, or None."""
 
     def __init__(self, model: Model, survey: Survey, f0: float = 10.0, *,
@@ -63,16 +64,12 @@ class ElasticPropagator:
                 planned = parallel._cuda_plan(self.cfg, survey)
             except ValueError:  # no plan takes the survey
                 pass
-        if self.device.type != "cpu":
-            if dtype != torch.float32:
-                raise NotImplementedError(
-                    f"the CUDA kernel computes in float32, not {dtype}.  "
-                    "device='cpu' runs the plain propagator.")
-            if planned is None:
-                raise ValueError(
-                    "the survey's receivers lie outside the range the CUDA "
-                    "kernels record.  device='cpu' runs the plain "
-                    "propagator.")
+        if (self.device.type != "cpu" and dtype == torch.float32
+                and planned is None):
+            raise ValueError(
+                "the survey's receivers lie outside the range the CUDA "
+                "kernels record.  dtype=torch.float64 runs the plain "
+                "propagator on this device, device='cpu' on the CPU.")
         self.rs = None if planned is None else planned[0].rs
         self.geoms = parallel.survey_to_geoms(survey, model.nPml,
                                               device=self.device, dtype=dtype)
@@ -95,7 +92,7 @@ class ElasticPropagator:
         lam, mu, rr = self._padded(vp if vp is not None else m.vp,
                                    vs if vs is not None else m.vs,
                                    rho if rho is not None else m.rho)
-        # without a plan only on the CPU: __init__ raises elsewhere
+        # without a plan: float64, or float32 on the CPU
         fwd = parallel.make_forward(self.cfg, self.survey,
                                     use_kernels=self.rs is not None,
                                     device=self.device, dtype=self.dtype)
@@ -114,7 +111,7 @@ class ElasticPropagator:
         a shot count the mesh does not divide is padded with zero-weight
         replicas.  The shards run the kernels' loss
         (`make_cuda_sharded_misfit`) where the survey has a plan, else the
-        plain propagator's (`make_sharded_misfit`, on the CPU).
+        plain propagator's (`make_sharded_misfit`, on the device named).
 
         Returns dict(misfit, grad_vp, grad_vs, grad_rho, grad_stf); gradients
         are on the PHYSICAL grid (PML collar folded back by the differentiable
@@ -132,7 +129,7 @@ class ElasticPropagator:
             loss = (parallel.make_cuda_misfit(self.cfg, survey, channels=ch)
                     if mesh is None else parallel.make_cuda_sharded_misfit(
                         self.cfg, survey, mesh, channels=ch))
-        else:  # only on the CPU: __init__ raises elsewhere
+        else:  # float64, or float32 on the CPU: __init__ raises elsewhere
             base = (parallel.make_local_misfit(self.cfg, channels=ch)
                     if mesh is None else parallel.make_sharded_misfit(
                         self.cfg, mesh, channels=ch))

@@ -18,13 +18,22 @@ scratch files, the on-device L-BFGS (`--optimizer ondevice`), and the
 shots sharded over several devices (`--n-devices`: every CUDA device by
 default, as the JAX CLI shards over every visible device; k CPU shards with
 --device cpu).  `bench` is the work of the port's benchmark (M8).
-`--device cuda` (the default) runs the CUDA kernels and raises for work
-they cannot take; `--device cpu` runs the plain PyTorch versions (and,
-with `--x64`, float64).  `invert --engine` parses as in the JAX CLI and maps onto
---device: auto follows it, pallas is the CUDA kernels and needs --device
-cuda, xla the plain version and needs --device cpu.  Models are
-synthesized (models.py) because the reference git-ignores its
-Models/*.txt grids.
+
+Engines (`resolve_engine`), as the JAX CLI picks its Pallas kernels or its
+XLA engine, with the CUDA kernels for the one and the plain PyTorch
+version for the other, which runs on whatever device `--device` names
+(`cuda`, the default, or `cpu`) and never moves to another:
+  `--x64` (invert, rtm)    the plain version in float64 on --device
+  `invert --engine xla`    the plain version on --device
+  `invert --engine pallas` the CUDA kernels: needs --device cuda, float32
+                           and a survey the kernels plan; raises otherwise
+  `--engine auto`          the CUDA kernels in float32 on --device cuda (a
+                           survey they cannot plan raises and names
+                           --engine xla), the plain version on --device cpu
+`forward` runs the kernels on the card and their plain versions with
+--device cpu.  The `engine:` line names the engine, and the plain one its
+device and dtype.  Models are synthesized (models.py) because the
+reference git-ignores its Models/*.txt grids.
 """
 from __future__ import annotations
 
@@ -219,20 +228,49 @@ def build_stage_loss(cfg, survey, geoms, *, use_kernels, shot_chunk,
         lam, mu, rho, stf, geoms, obs, w, *aux)
 
 
-# The device each --engine runs on: the JAX package's Pallas kernels are
-# the CUDA kernels here, its XLA engine the plain PyTorch version.
-ENGINE_DEVICE = {"pallas": "cuda", "xla": "cpu"}
+def resolve_engine(engine: str, device, dtype, plan) -> bool:
+    """Whether a run takes the CUDA kernels (True) or the plain PyTorch
+    version on `device` (False): the JAX CLI's choice between its Pallas
+    kernels and its XLA engine (sep2023_tpu/cli.py:338-342), where the
+    plain version is the XLA engine and runs on the device asked for, the
+    card included.  engine: --engine (auto, xla, pallas); plan: the
+    survey's FastPlan, None when no plan takes it.  auto takes the kernels
+    for float32 on a CUDA device and the plain version otherwise; xla the
+    plain version always; pallas the kernels.  Raises ValueError where the
+    kernels are asked for and cannot run: pallas off a CUDA device or in
+    float64, and a survey no plan takes under pallas or auto (the JAX CLI
+    drops to XLA there; the port does not fall back, and names
+    --engine xla)."""
+    device = torch.device(device)
+    if engine == "xla":
+        return False
+    if engine == "pallas" and device.type != "cuda":
+        raise ValueError(f"--engine pallas runs on --device cuda, not "
+                         f"--device {device.type}")
+    if engine == "pallas" and dtype != torch.float32:
+        raise ValueError("--engine pallas computes in float32: --x64 runs "
+                         "on --engine xla or auto")
+    if engine == "auto" and (device.type != "cuda" or dtype != torch.float32):
+        return False
+    if plan is None:
+        raise ValueError("no plan of the CUDA kernels takes the survey's "
+                         "receivers: --engine xla runs it on the plain "
+                         f"PyTorch version on --device {device.type}")
+    return True
 
 
-def _check_engine(args):
-    """--engine as the JAX CLI spells it, held to --device: auto follows
-    --device, pallas (the CUDA kernels) needs --device cuda, xla (the plain
-    version) --device cpu; any other pair raises rather than run an engine
-    the two flags do not agree on."""
-    want = ENGINE_DEVICE.get(args.engine)
-    if want is not None and args.device != want:
-        raise ValueError(f"--engine {args.engine} runs on --device {want}, "
-                         f"not --device {args.device}")
+def try_plan(cfg, survey):
+    """The survey's FastPlan (`parallel._cuda_plan`), or None when no plan
+    takes it."""
+    try:
+        return parallel._cuda_plan(cfg, survey)[0]
+    except ValueError:
+        return None
+
+
+def plain_engine_name(device, dtype) -> str:
+    """The plain engine's `engine:` line: plain PyTorch (cuda:0, float64)."""
+    return f"plain PyTorch ({device}, {str(dtype).removeprefix('torch.')})"
 
 
 def shot_weights(survey, *, device, dtype):
@@ -322,14 +360,10 @@ def cmd_invert(args):
     stage.  --n-devices shards the shots (`parallel.shot_mesh`), padded
     with zero-weight replicas of the last shot to a multiple of the mesh;
     the files it writes hold the real shots only."""
-    _check_engine(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a CUDA device; --device cpu "
                            "runs the plain PyTorch version")
-    if args.x64 and device.type != "cpu":
-        raise NotImplementedError("--x64 runs on the CPU only: the CUDA "
-                                  "kernels compute in float32")
     dtype = torch.float64 if args.x64 else torch.float32
     if args.para_json:
         _load_para_json(args)
@@ -380,13 +414,10 @@ def cmd_invert(args):
                   + parallel.state_bytes_per_shot(cfg, itemsize=isz)) / 2 ** 30
             print(f"shot-chunk auto: {args.shot_chunk} shots/chunk "
                   f"(~{gb:.2f} GB strips and planes/shot)")
-    # a CUDA device runs the kernels (float32, any grid size) and raises
-    # for anything else; the plain propagator runs on the CPU only
-    use_kernels = device.type == "cuda"
-    if use_kernels:
-        plan, _ = parallel._cuda_plan(cfg, survey)
+    plan = try_plan(cfg, survey)
+    use_kernels = resolve_engine(args.engine, device, dtype, plan)
     print("engine: " + (cuda_engine.plan_engine_name(plan) if use_kernels
-                        else "plain PyTorch (CPU)"))
+                        else plain_engine_name(stf.device, dtype)))
     # the twin data, the --src-update synthetics and the scratch dumps run
     # through the same engine and chunks as the stage losses
     def make_fwd(survey):
@@ -598,15 +629,16 @@ def cmd_invert(args):
             "stages": len(stages), "src_updates": src_updates}
 
 
-def _rtm_acoustic(cfg, survey, vpt, vpb, rho, stf, device):
+def _rtm_acoustic(cfg, survey, vpt, vpb, rho, stf, use_kernels):
     """(image, illumination) of `rtm --physics acoustic`, summed over shots:
     observed and synthetic data through the acoustic forward, their
-    difference migrated with the time-derivative condition.  On the card
-    the kernels, in chunks of `auto_shot_chunk(acoustic=True)` shots; on the
-    CPU the plain propagator."""
+    difference migrated with the time-derivative condition.  use_kernels:
+    the kernels, in chunks of `auto_shot_chunk(acoustic=True)` shots; else
+    the plain propagator on the tensors' device."""
+    device = rho.device
     sz, sx = survey.src_z + cfg.npml, survey.src_x + cfg.npml
     S = survey.n_shots
-    if device.type != "cuda":
+    if not use_kernels:
         geoms = parallel.survey_to_geoms(survey, cfg.npml, device=device,
                                          dtype=rho.dtype)
         ac = acoustic.AcGeom(geoms.src_z, geoms.src_x, geoms.rec_z,
@@ -639,18 +671,20 @@ def _rtm_acoustic(cfg, survey, vpt, vpb, rho, stf, device):
     return img, ill
 
 
-def _rtm_elastic(cfg, survey, vpt, vpb, rho, stf, channels, device):
+def _rtm_elastic(cfg, survey, vpt, vpb, rho, stf, channels, use_kernels):
     """(image, illumination) of `rtm --physics elastic`, summed over shots:
     the zero-lag Vp condition is the Vp gradient of the L2 misfit on
-    `channels`.  On the card through the elastic kernels (make_cuda_misfit,
+    `channels`.  use_kernels: through the elastic kernels (make_cuda_misfit,
     in chunks of `auto_shot_chunk` shots) and the illumination through the
     fused forward step (cuda_engine.illumination_cuda_plan, chunk by chunk);
-    on the CPU imaging.rtm_image a shot and imaging.source_illumination."""
+    else imaging.rtm_image a shot and imaging.source_illumination on the
+    tensors' device."""
+    device = rho.device
     vst, vsb = vpt / np.sqrt(2.2), vpb / np.sqrt(2.2)
     S = survey.n_shots
     lam_t, mu_t = (vpt ** 2 - 2.0 * vst ** 2) * rho, vst ** 2 * rho
     lam_b, mu_b = (vpb ** 2 - 2.0 * vsb ** 2) * rho, vsb ** 2 * rho
-    if device.type == "cuda":
+    if use_kernels:
         plan, _ = parallel._cuda_plan(cfg, survey)
         print("engine: " + cuda_engine.plan_engine_name(plan))
         chunk = parallel.auto_shot_chunk(cfg, S, device=device)
@@ -700,9 +734,6 @@ def cmd_rtm(args):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a CUDA device; --device cpu "
                            "runs the plain PyTorch version")
-    if args.x64 and device.type != "cpu":
-        raise NotImplementedError("--x64 runs on the CPU only: the CUDA "
-                                  "kernels compute in float32")
     dtype = torch.float64 if args.x64 else torch.float32
     bad = [c for c in args.channels if c not in CHANNELS]
     if bad:
@@ -732,15 +763,19 @@ def cmd_rtm(args):
     cfg.check_stability(float(vp_t.max()))
     survey_tools.check_reach(cfg, survey, float(vp_t.max()))
 
+    use_kernels = resolve_engine("auto", device, dtype,
+                                 try_plan(cfg, survey))
+    if not use_kernels:
+        print("engine: " + plain_engine_name(stf.device, dtype))
     if args.physics == "acoustic":
         img, illum = _rtm_acoustic(cfg, survey, pad(vp_t), pad(vp_bg), rho,
-                                   stf, device)
+                                   stf, use_kernels)
         condition = "time-derivative (image_vel_time.cu)"
     else:
         img, illum = _rtm_elastic(cfg, survey, pad(vp_t), pad(vp_bg), rho,
-                                  stf, tuple(args.channels), device)
-        condition = ("zero-lag (image_vel.cu, CUDA kernels)"
-                     if device.type == "cuda" else "zero-lag (image_vel.cu)")
+                                  stf, tuple(args.channels), use_kernels)
+        condition = ("zero-lag (image_vel.cu, CUDA kernels)" if use_kernels
+                     else "zero-lag (image_vel.cu)")
 
     compensated = imaging.illumination_compensate(img, illum).cpu().numpy()
     img, illum = img.cpu().numpy(), illum.cpu().numpy()
@@ -780,8 +815,9 @@ def main(argv=None):
     common.add_argument("--wavelet", default="ricker",
                         choices=("ricker", "ricker_int", "klauder"))
     common.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                        help="cuda runs the CUDA kernel; cpu runs its plain "
-                             "PyTorch version")
+                        help="the device every engine runs on: cuda (the "
+                             "CUDA kernels, or the plain PyTorch version "
+                             "with --x64 or --engine xla) or cpu")
 
     f = sub.add_parser("forward", parents=[common])
     f.add_argument("--data-dir", default="")
@@ -799,7 +835,7 @@ def main(argv=None):
     i.add_argument("--channels", nargs="+", default=["ett"])
     i.add_argument("--generate_data", action="store_true")
     i.add_argument("--x64", action="store_true",
-                   help="float64 (with --device cpu only)")
+                   help="float64: the plain PyTorch version on --device")
     i.add_argument("--model", default="anomaly", choices=("anomaly", "rock"),
                    help="'rock' + a velocity head = Main-005 (NO-PCS) flow")
     i.add_argument("--shot-chunk", type=int, default=-1,
@@ -849,10 +885,11 @@ def main(argv=None):
                         "iteration (Main-001:144-150)")
     i.add_argument("--engine", default="auto",
                    choices=("auto", "xla", "pallas"),
-                   help="the JAX CLI's engine choice, held to --device: "
-                        "auto follows it, pallas = the CUDA kernels "
-                        "(--device cuda), xla = the plain PyTorch version "
-                        "(--device cpu)")
+                   help="the JAX CLI's engine choice: pallas = the CUDA "
+                        "kernels (--device cuda, float32), xla = the plain "
+                        "PyTorch version on --device, auto = the kernels "
+                        "for float32 on --device cuda, else the plain "
+                        "version")
     i.add_argument("--optimizer", default="scipy",
                    choices=("scipy", "ondevice"),
                    help="scipy L-BFGS-B, or the on-device L-BFGS with a "
@@ -874,7 +911,7 @@ def main(argv=None):
     r.add_argument("--out", default="",
                    help="output .npz path (default rtm_image.npz)")
     r.add_argument("--x64", action="store_true",
-                   help="float64 (with --device cpu only)")
+                   help="float64: the plain PyTorch version on --device")
     r.set_defaults(fn=cmd_rtm)
 
     args = p.parse_args(argv)

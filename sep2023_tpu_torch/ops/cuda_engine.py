@@ -87,14 +87,21 @@ LAUNCHES_ILL = 0
 # Calls of each plain version (on CPU tensors, or by a caller comparing),
 # those of the acoustic engine (ops/cuda_acoustic.py) and
 # imaging.source_illumination, the plain version of illumination_cuda_plan,
-# included.
+# included; and the calls of the plain engine on whatever device its
+# tensors lie (the JAX package's XLA engine): "propagate"
+# (propagator.propagate_shots), "propagate_acoustic"
+# (acoustic.propagate_acoustic_shots), "rtm_image_time"
+# (acoustic.rtm_image_time_shots) and "propagate_dd" (a mesh row of
+# parallel.make_dd_misfit).
 PLAIN_CALLS = {"forward_plain": 0, "forward_plain_strips": 0,
                "backward_plain": 0, "reconstruct_plain": 0,
                "forward_plain_acoustic": 0,
                "forward_plain_acoustic_strips": 0,
                "backward_plain_acoustic": 0,
                "reconstruct_plain_acoustic": 0, "rtm_image_time_plain": 0,
-               "source_illumination": 0, "snapshots_plain": 0}
+               "source_illumination": 0, "snapshots_plain": 0,
+               "propagate": 0, "propagate_acoustic": 0, "rtm_image_time": 0,
+               "propagate_dd": 0}
 # Held by every update of the counters above and of the acoustic engine's,
 # which are read-modify-writes shared by the threads of a sharded loss.
 COUNT_LOCK = threading.Lock()

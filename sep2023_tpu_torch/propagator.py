@@ -441,6 +441,9 @@ class _Propagate(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cfg, geom, lam, mu, rho, stf):
+        # imported here: cuda_engine imports this module
+        from sep2023_tpu_torch.ops.cuda_engine import count_plain
+        count_plain("propagate")
         if not any(ctx.needs_input_grad[2:]):
             return _forward(cfg, lam, mu, rho, stf, geom)
         data, final, strips = _forward(cfg, lam, mu, rho, stf, geom,

@@ -3,11 +3,14 @@ chip_smoke.py, so both hold the CUDA kernels against their plain versions
 on the same cases with the same tolerances."""
 from __future__ import annotations
 
+import glob
+import os
+
 import numpy as np
 import torch
 
-from sep2023_tpu_torch import das, models
-from sep2023_tpu_torch.config import SimConfig, ricker
+from sep2023_tpu_torch import api, cli, das, models
+from sep2023_tpu_torch.config import SimConfig, Survey, ricker
 from sep2023_tpu_torch.medium import Medium, pad_model_np
 from sep2023_tpu_torch.ops import cuda_acoustic, cuda_engine
 from sep2023_tpu_torch.ops.misfit import residual
@@ -381,3 +384,43 @@ def adjoint_gap(cfg, rs, args, seed=7):
     (g,) = torch.autograd.grad(data, s, d)
     rhs = float((g.double() * s.detach().double()).sum())
     return lhs, rhs, abs(lhs - rhs) / abs(lhs)
+
+
+# The plain engine on another device than the CPU against the CPU, float64
+# (the JAX package's XLA engine on its accelerator): `invert` at the CPU
+# tests' tiny size, and ElasticPropagator on the API's small problem.
+TINY_INVERT = ["--nz", "28", "--nx", "48", "--nt", "80", "--npml", "8",
+               "--niter", "2"]
+PLAIN_DEVICE_TOL = 1e-9
+
+
+def invert_run(argv, exp):
+    """(loss.txt (n, 2), the last Results/model_*.npz as a dict, summary)
+    of `invert *argv --exp-name exp`."""
+    out = cli.main(["invert", *argv, "--exp-name", exp])
+    hist = np.loadtxt(os.path.join(exp, "Results", "loss.txt"), ndmin=2)
+    snap = sorted(glob.glob(os.path.join(exp, "Results", "model_*.npz")))
+    with np.load(snap[-1]) as z:
+        model = {k: z[k] for k in z.files}
+    return hist, model, out
+
+
+def rel_diff(a, b) -> float:
+    """max |a - b| / max |b| (0 when both are 0)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    scale = np.abs(b).max()
+    return float(np.abs(a - b).max() / scale) if scale else float(
+        np.abs(a).max())
+
+
+def api_problem():
+    """(Model, Survey) of the API's small problem (44x60, npml 10, nt=260,
+    2 shots, a receiver row) and its initial model (vp 3000 everywhere)."""
+    nz, nx = 44, 60
+    vp, vs, rho = models.anomaly_vp_vs_rho(nz, nx)
+    model = api.Model(nx=nx, nz=nz, dx=20.0, dz=20.0, nt=260, dt=0.002,
+                      nPml=10, vp=vp, vs=vs, rho=rho)
+    survey = Survey(src_z=np.array([1, 1]), src_x=np.array([15, 45]),
+                    rec_z=np.full(40, 38), rec_x=np.arange(10, 50))
+    init = api.Model(**{**model.__dict__, "vp": np.full_like(vp, 3000.0)})
+    return model, survey, init

@@ -190,19 +190,23 @@ def test_apply_forward_matches_jax(model, layout):
 @pytest.mark.parametrize("case,exc,match", [
     ("two_rows", RuntimeError, "simulated"),
     ("ragged", RuntimeError, "simulated"),
-    ("f64", NotImplementedError, "float32"),
+    ("f64", AssertionError, "on meta in float64"),
 ])
 def test_apply_forward_off_cpu_raises(model, monkeypatch, case, exc, match):
     """Off the CPU a two-row and a ragged survey plan as point receivers
-    and reach the kernel build (made to fail here); float64 raises.  None
-    runs the plain propagator on the device instead."""
+    and reach the kernel build (made to fail here); neither runs the plain
+    propagator on the device instead.  Float64 runs the plain propagator on
+    the device it was given (the JAX API's XLA path), not on the CPU."""
     from sep2023_tpu_torch import parallel, propagator
     from sep2023_tpu_torch.ops import _build
 
     def broken_build():
         raise RuntimeError("nvcc failed (simulated)")
 
-    def no_plain(*a, **k):
+    def no_plain(cfg, lam, *a, **k):
+        if lam.dtype == torch.float64:
+            raise AssertionError(f"the plain propagator on {lam.device.type} "
+                                 "in float64")
         raise AssertionError("ElasticPropagator ran the plain propagator")
 
     monkeypatch.setattr(_build, "_LIB", None)
@@ -220,6 +224,9 @@ def test_apply_forward_off_cpu_raises(model, monkeypatch, case, exc, match):
         prop = tapi.ElasticPropagator(tapi.Model(**model.__dict__),
                                       tcfg.Survey(**sv), device="meta",
                                       dtype=dtype)
+        if case == "f64":
+            assert prop.rs is None
+            prop.apply_forward()
         assert isinstance(prop.rs, cuda_engine.FiberSurvey)
         assert parallel._cuda_plan(prop.cfg, prop.survey)[0].rs == prop.rs
         prop.apply_forward()

@@ -24,8 +24,11 @@ bitwise equal to a plain loop over shots, with a per-shot stride that is a
 multiple of 4 floats and one that is not, and planes off 16-byte alignment.
 The kernels' sharded loss over a mesh that repeats the card against the
 unsharded loss (loss 1e-6, gradients 2e-5 of each max, exact launches, a
-second evaluation bitwise).
-These mirror phases 3, 7-10, 12, 17, 19e, 20-23, 26 and 29 of chip_smoke.py;
+second evaluation bitwise).  The plain engine on the card in float64
+(`invert --x64`, ElasticPropagator(dtype=torch.float64)) against the same
+run on the CPU, to 1e-9 relative, with no kernel launch.
+These mirror phases 3, 7-10, 12, 17, 19e, 20-23, 26, 29 and 30 of
+chip_smoke.py;
 they need a CUDA device and nvcc, and skip without a card:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -35,21 +38,24 @@ import numpy as np
 import pytest
 import torch
 
-from sep2023_tpu_torch import (cli, imaging, medium, models, parallel,
+from sep2023_tpu_torch import (api, cli, imaging, medium, models, parallel,
                                propagator)
 from sep2023_tpu_torch.ops import _build, cuda_acoustic, cuda_engine
 from sep2023_tpu_torch.testing import (AC_CASES, AC_INTERIOR,
                                        AC_TILE_EDGE_CASES, DOT_TOL,
                                        FIBER_CASES, FWD_TOL, GRAD_TOL,
-                                       RECON_RATIO, ROW_CASES,
-                                       TILE_EDGE_CASES, TILE_EDGE_SEED,
+                                       PLAIN_DEVICE_TOL, RECON_RATIO,
+                                       ROW_CASES, TILE_EDGE_CASES,
+                                       TILE_EDGE_SEED, TINY_INVERT,
                                        ac_perturbed_cotangent, ac_problem,
                                        ac_tile_edge_problem, acoustic_args,
-                                       adjoint_gap, fiber_problem,
-                                       grad_errors, max_rel,
+                                       adjoint_gap, api_problem,
+                                       fiber_problem, grad_errors,
+                                       invert_run, max_rel,
                                        perturbed_cotangent,
-                                       reconstruction_residual, row_problem,
-                                       strip_errors, tile_edge_problem)
+                                       reconstruction_residual, rel_diff,
+                                       row_problem, strip_errors,
+                                       tile_edge_problem)
 
 pytestmark = pytest.mark.cuda
 
@@ -660,3 +666,50 @@ def test_sharded_gradient_matches_unsharded(cuda, n_shards, chunk):
     val2, grads2 = value_and_grad(loss, obs_p, w_p, n_pad)
     assert torch.equal(val, val2)
     assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
+
+
+def _launches():
+    return (cuda_engine.LAUNCHES, cuda_engine.LAUNCHES_BWD,
+            cuda_acoustic.LAUNCHES_AC, cuda_acoustic.LAUNCHES_AC_BWD)
+
+
+def test_invert_x64_on_the_card_matches_cpu(cuda, tmp_path, capsys):
+    """`invert --x64 --device cuda` runs the plain version in float64 on
+    the card (the engine line names it, the plain propagator is called, no
+    kernel launches) and gives --device cpu's loss.txt and model to 1e-9
+    relative (phase 30 of chip_smoke.py)."""
+    before = (_launches(), cuda_engine.PLAIN_CALLS["propagate"])
+    card = invert_run([*TINY_INVERT, "--x64"], str(tmp_path / "card"))
+    out = capsys.readouterr().out
+    assert "engine: plain PyTorch (cuda:0, float64)" in out
+    assert _launches() == before[0]
+    assert cuda_engine.PLAIN_CALLS["propagate"] > before[1]
+    cpu = invert_run([*TINY_INVERT, "--x64", "--device", "cpu"],
+                     str(tmp_path / "cpu"))
+    assert card[0].shape == cpu[0].shape and len(card[0]) >= 1
+    assert rel_diff(card[0][:, 1], cpu[0][:, 1]) <= PLAIN_DEVICE_TOL
+    assert card[1].keys() == cpu[1].keys()
+    for k in cpu[1]:
+        assert rel_diff(card[1][k], cpu[1][k]) <= PLAIN_DEVICE_TOL, k
+
+
+def test_api_float64_on_the_card_matches_cpu(cuda):
+    """ElasticPropagator(dtype=torch.float64, device='cuda') runs the plain
+    propagator on the card (the JAX API's XLA path): apply_gradient equals
+    device='cpu''s to 1e-9 relative, with no kernel launch (phase 30)."""
+    model, survey, init = api_problem()
+    obs = api.ElasticPropagator(model, survey, device="cpu",
+                                dtype=torch.float64).apply_forward()
+    before = _launches()
+    card = api.ElasticPropagator(model, survey, device=cuda,
+                                 dtype=torch.float64)
+    assert card.rs is None
+    got = card.apply_gradient(init, obs)
+    assert _launches() == before
+    ref = api.ElasticPropagator(model, survey, device="cpu",
+                                dtype=torch.float64).apply_gradient(init, obs)
+    assert got["misfit"] > 0
+    assert abs(got["misfit"] - ref["misfit"]) <= \
+        PLAIN_DEVICE_TOL * ref["misfit"]
+    for k in ("grad_vp", "grad_vs", "grad_rho", "grad_stf"):
+        assert rel_diff(got[k], ref[k]) <= PLAIN_DEVICE_TOL, k

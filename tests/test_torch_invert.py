@@ -220,7 +220,12 @@ def test_invert_generate_then_load(tmp_path, capsys):
     assert loaded["misfit"] == pytest.approx(fresh["misfit"], rel=1e-3)
 
 
-def test_invert_x64_needs_the_cpu(tmp_path):
-    with pytest.raises((NotImplementedError, RuntimeError)):
+def test_invert_x64_needs_the_cpu(tmp_path, monkeypatch):
+    """`--x64 --device cuda` runs the plain version in float64 on the card
+    (tests/test_torch_cuda.py holds it to --device cpu); on a machine
+    without a card it raises for want of the card and does not move to
+    the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
         cli.main(["invert", *TINY, "--device", "cuda", "--exp-name",
                   str(tmp_path)])

@@ -264,9 +264,20 @@ SURVEYS = {
 def test_gradient_entries_off_cpu_raise(monkeypatch, entry, case, exc,
                                         match):
     """On a device that is not the CPU, the invert path's entry points run
-    the kernels or raise: never the plain propagator.  A two-row spread
-    plans as point receivers and reaches the kernel build like a row."""
+    the kernels or raise: never the plain propagator in float32.  A two-row
+    spread plans as point receivers and reaches the kernel build like a
+    row.  In float64 the kernels' entries raise, and apply_gradient takes
+    the plain propagator on the device it was given (the JAX API's XLA
+    path), not on the CPU."""
     _broken_build(monkeypatch)
+    if entry == "apply_gradient" and case == "f64":
+        def plain_on_device(cfg, lam, *a):
+            assert lam.device.type == "meta" and lam.dtype == torch.float64
+            raise NotImplementedError("plain propagator reached in float64")
+
+        monkeypatch.setattr(cuda_engine.propagator, "propagate_shots",
+                            plain_on_device)
+        match = "plain propagator reached in float64"
     sv = Survey(**SURVEYS["two_rows" if case == "two_rows" else "row"])
     dtype = torch.float64 if case == "f64" else torch.float32
     lam, mu, rho, stf, _, _, _ = _inputs(device="meta", dtype=dtype)
