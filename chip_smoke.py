@@ -76,8 +76,12 @@ engine on its accelerator (phase 30): `invert --x64`, `invert --engine
 xla` and `rtm --x64` on the card against the CPU, ElasticPropagator in
 float64 on the card against the CPU, the float32 kernels' loss and
 gradients at the reference workload against the float64 plain answer on
-the card, and a survey no plan takes refused under --engine auto and run
-under --engine xla.
+the card, and a survey no plan takes, which the JAX package runs on its
+XLA engine: refused on the card under --engine auto and pallas and by
+ElasticPropagator's default engine, and run in float32 by the plain engine
+on the card when asked (`invert --engine xla`, over a mesh of the card,
+ElasticPropagator(engine='xla'), each against the CPU; at full width
+against float64).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 3,7,8,9,10,20   # those phases only
@@ -120,20 +124,22 @@ from sep2023_tpu_torch.ops import _build, cuda_acoustic, cuda_engine
 from sep2023_tpu_torch.ops import signal as sg
 from sep2023_tpu_torch.ops.misfit import l2_misfit, make_preprocessed_l2
 from sep2023_tpu_torch.testing import (AC_CASES, AC_INTERIOR,
-                                       AC_TILE_EDGE_CASES, DOT_TOL,
-                                       FIBER_CASES, GRAD_TOL,
-                                       PLAIN_DEVICE_TOL, RECON_RATIO,
+                                       AC_TILE_EDGE_CASES, CORNER_INVERT,
+                                       DOT_TOL, FIBER_CASES, GRAD_TOL,
+                                       PLAIN_DEVICE_TOL,
+                                       PLAIN_F32_DEVICE_TOL, RECON_RATIO,
                                        ROW_CASES, TILE_EDGE_CASES,
                                        TILE_EDGE_SEED, TINY_INVERT,
                                        ac_perturbed_cotangent, ac_problem,
                                        ac_row_problem, ac_tile_edge_problem,
                                        acoustic_args, adjoint_gap,
-                                       api_problem, fiber_problem,
+                                       api_problem, corner_api_problem,
+                                       corner_survey, fiber_problem,
                                        grad_errors, invert_run,
                                        perturbed_cotangent,
                                        reconstruction_residual, rel_diff,
-                                       row_problem, strip_errors,
-                                       tile_edge_problem)
+                                       repeated_shot_mesh, row_problem,
+                                       strip_errors, tile_edge_problem)
 from sep2023_tpu_torch.testing import max_rel as rel_err
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -2653,23 +2659,45 @@ def _no_kernel(label, counts, plain_calls, *names):
           f"{label}: launches {counts}, plain calls {plain_calls}")
 
 
-def _plain_invert(tmp, tag, argv):
-    """invert_run of argv on the card, counted, and of argv on the CPU:
-    (loss.txt error, largest model error, engine line seen, counts,
-    plain calls)."""
+class CardRun(NamedTuple):
+    """An invert_run on the card, counted and timed."""
+    hist: np.ndarray     # its loss.txt
+    model: dict          # its last model snapshot
+    printed: str         # what it printed
+    counts: dict         # its launch counters
+    plain_calls: dict    # its plain-engine calls
+    seconds: float       # its wall time
+    peak_bytes: int      # its peak of allocated device memory less what
+                         # was allocated just before it started
+
+
+def _card_invert(argv, exp):
+    """invert_run of argv on the card (--device cuda, the default) with the
+    counts set to 0 just before it: a CardRun."""
     reset_counts()
-    (hist, model, _), printed = _captured(lambda: invert_run(
-        argv, os.path.join(tmp, tag + "_card")))
-    counts, plain_calls = read_counts()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (hist, model, _), printed = _captured(lambda: invert_run(argv, exp))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    return CardRun(hist, model, printed, *read_counts(), seconds, peak)
+
+
+def _plain_invert(tmp, tag, argv):
+    """invert_run of argv on the card and on the CPU: (the CardRun,
+    loss.txt error, the largest of the model's errors), each relative to
+    the CPU's max."""
+    run = _card_invert(argv, os.path.join(tmp, tag + "_card"))
     hist_c, model_c, _ = invert_run([*argv, "--device", "cpu"],
                                     os.path.join(tmp, tag + "_cpu"))
-    check(hist.shape == hist_c.shape and len(hist) >= 1,
-          f"{tag}: loss.txt {hist.shape} on the card, {hist_c.shape} on the "
-          "CPU")
-    return (rel_diff(hist[:, 1], hist_c[:, 1]),
-            max(rel_diff(model[k], model_c[k]) for k in model_c),
-            "engine: plain PyTorch (cuda:0, float64)" in printed,
-            counts, plain_calls)
+    check(run.hist.shape == hist_c.shape and len(hist_c) >= 1,
+          f"{tag}: loss.txt {run.hist.shape} on the card, {hist_c.shape} on "
+          "the CPU")
+    return (run, rel_diff(run.hist[:, 1], hist_c[:, 1]),
+            max(rel_diff(run.model[k], model_c[k]) for k in model_c))
 
 
 def phase_plain_engine(dev):
@@ -2683,18 +2711,21 @@ def phase_plain_engine(dev):
     reference workload one float64 value and gradient of the plain loss on
     the card against the float32 kernels' (make_cuda_misfit), held to
     F64_LOSS_TOL and F64_GRAD_TOL; (c) ElasticPropagator(dtype=float64,
-    device='cuda').apply_gradient against device='cpu'; (d) `invert`
-    with a survey no plan takes raises under --engine auto, naming
-    --engine xla, and --engine xla runs it."""
+    device='cuda').apply_gradient against device='cpu'; (d) a survey no
+    plan takes, refused on the card in float32 under --engine auto and
+    pallas and run there under --engine xla, on a mesh, through the api
+    and at full width (`_unplanned`)."""
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for tag, flags in (("x64", ["--x64"]),
                            ("xla_x64", ["--engine", "xla", "--x64"])):
             t0 = time.perf_counter()
-            loss_err, model_err, named, counts, plain_calls = _plain_invert(
+            run, loss_err, model_err = _plain_invert(
                 tmp, tag, [*TINY_INVERT, *flags])
+            plain_calls = run.plain_calls
+            named = "engine: plain PyTorch (cuda:0, float64)" in run.printed
             label = f"[30a invert {' '.join(flags)}]"
-            _no_kernel(label, counts, plain_calls, "propagate")
+            _no_kernel(label, run.counts, plain_calls, "propagate")
             check(named and loss_err <= PLAIN_DEVICE_TOL
                   and model_err <= PLAIN_DEVICE_TOL,
                   f"{label} on the card against the CPU: loss.txt "
@@ -2784,36 +2815,158 @@ def phase_plain_engine(dev):
               f"{PLAIN_DEVICE_TOL}; no kernel launch; plain calls "
               f"{plain_calls}")
 
-        # a survey no plan takes: the receiver row and two grid corners
-        nz, nx, npml = 28, 48, 8
-        corners = Survey(src_z=np.ones(3), src_x=np.array([10, 20, 30]),
-                         rec_z=np.array([22] * 28 + [-npml, nz + npml - 1]),
-                         rec_x=np.array(list(range(10, 38))
-                                        + [-npml, nx + npml - 1]))
-        path = os.path.join(tmp, "corners.json")
-        corners.to_json(path)
-        argv = ["invert", *TINY_INVERT, "--survey-json", path, "--exp-name",
-                os.path.join(tmp, "corners")]
-        try:
-            cli.main(argv)
-            raised = ""
-        except ValueError as e:
-            raised = str(e)
-        check("--engine xla" in raised, f"[30d] --engine auto on a survey no "
-              f"plan takes: {raised!r}")
-        reset_counts()
-        d = os.path.join(tmp, "corners_data")
-        cli.main([*argv, "--engine", "xla", "--generate_data", "--data-dir",
-                  d])
-        counts, plain_calls = read_counts()
-        _no_kernel("[30d]", counts, plain_calls, "propagate")
-        shots = sio.read_shots_survey(d, corners, 80)
-        check(np.isfinite(shots).all() and np.abs(shots[:, 3]).max() > 0,
-              "[30d] --engine xla data not finite or silent")
-        print(f"[30d] --engine auto on a survey no plan takes raised: "
-              f"{raised!r}; --engine xla ran it on the card "
-              f"(--generate_data, data {shots.shape}, finite; no kernel "
-              "launch)")
+        out["unplanned"] = _unplanned(dev, tmp)
+    return out
+
+
+def _refused(label, fn, want):
+    """fn() raises ValueError naming `want` before anything runs: no kernel
+    launch and no plain engine call."""
+    reset_counts()
+    try:
+        fn()
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    counts, plain_calls = read_counts()
+    check(want in raised and counts_are(counts, {})
+          and not any(plain_calls.values()),
+          f"{label}: raised {raised!r}; launches {counts}, plain calls "
+          f"{plain_calls}")
+    print(f"{label} refused before anything ran: {raised!r}")
+
+
+def _unplanned(dev, tmp):
+    """Phase 30d: a survey no plan takes (`corner_survey`: a receiver row
+    and two corners of the padded grid), which the JAX CLI runs on its XLA
+    engine under every --engine.  On the card `invert` in float32 under
+    --engine auto and pallas, and ElasticPropagator(dtype=torch.float32,
+    device='cuda'), raise before anything runs, naming the plain engine's
+    way in (--engine xla, engine='xla').  That way runs it: `invert
+    --engine xla` at CORNER_INVERT's size against --device cpu (loss.txt
+    and the model to PLAIN_F32_DEVICE_TOL), its engine line naming cuda:0
+    and float32, no kernel launch; the same with --n-devices 2 on a mesh
+    that repeats the card (the plain sharded loss) against the unsharded
+    loss at the starting model (loss.txt's first row); ElasticPropagator(
+    engine='xla')'s apply_forward and apply_gradient on the card against
+    device='cpu'; and at full width (the reference survey and the two
+    corners on the CLI's default grid, 19 shots, nt=1501, --niter 1)
+    float32 against float64 on the card at the starting model, to
+    F64_LOSS_TOL."""
+    tol = PLAIN_F32_DEVICE_TOL
+    line = "engine: plain PyTorch (cuda:0, float32)"
+    path = os.path.join(tmp, "corners.json")
+    corner_survey(44, 64).to_json(path)
+    argv = [*CORNER_INVERT, "--survey-json", path]
+    for flags in ([], ["--engine", "pallas"]):
+        _refused(f"[30d invert {' '.join(flags) or '--engine auto'}]",
+                 lambda: invert_run([*argv, *flags],
+                                    os.path.join(tmp, "refused")),
+                 "--engine xla runs it")
+    model, survey, init = corner_api_problem()
+    _refused("[30d api engine='auto']",
+             lambda: api.ElasticPropagator(model, survey, device=dev),
+             "engine='xla' runs the plain propagator")
+
+    xla = [*argv, "--engine", "xla"]
+    run, loss_err, model_err = _plain_invert(tmp, "corners", xla)
+    label = "[30d invert --engine xla, a survey no plan takes]"
+    _no_kernel(label, run.counts, run.plain_calls, "propagate")
+    check(line in run.printed and loss_err <= tol and model_err <= tol,
+          f"{label} on the card against the CPU: loss.txt {loss_err}, "
+          f"model {model_err} (tol {tol}); engine line named: "
+          f"{line in run.printed}")
+    print(f"{label} ({' '.join(xla)}) on the card against --device cpu: "
+          f"loss.txt {loss_err:.3e}, model {model_err:.3e} <= {tol} "
+          f"relative; '{line}'; no kernel launch; plain calls "
+          f"{run.plain_calls}; {run.seconds:.2f} s on the card, peak "
+          f"memory {run.peak_bytes / 1e6:.1f} MB over what was allocated")
+    out = {"invert": (loss_err, model_err, run.seconds, run.peak_bytes)}
+
+    real = parallel.shot_mesh
+    parallel.shot_mesh = repeated_shot_mesh
+    try:
+        sharded = _card_invert([*xla, "--n-devices", "2"],
+                               os.path.join(tmp, "corners_sharded"))
+    finally:
+        parallel.shot_mesh = real
+    label = "[30d invert --engine xla --n-devices 2]"
+    _no_kernel(label, sharded.counts, sharded.plain_calls, "propagate")
+    hist = sharded.hist
+    err0 = abs(hist[0, 1] - run.hist[0, 1]) / run.hist[0, 1]
+    on_mesh = "multi-chip: 2-device shot mesh" in sharded.printed
+    # the sharded loss adds its shots in another order: at the starting
+    # model it is held to the unsharded loss, after L-BFGS-B's steps that
+    # rounding has moved the iterates (5.6e-6 on the CPU)
+    check(line in sharded.printed and on_mesh
+          and hist.shape == run.hist.shape and err0 <= tol
+          and hist[-1, 1] < hist[0, 1],
+          f"{label} against the unsharded run: loss.txt {hist[:, 1]} "
+          f"against {run.hist[:, 1]}, first row {err0} (tol {tol}); engine "
+          f"line named: {line in sharded.printed}; on the mesh: {on_mesh}")
+    print(f"{label}: the plain sharded loss on a mesh of 2 that repeats the "
+          f"card; loss.txt's first row (the loss at the starting model) "
+          f"{err0:.3e} <= {tol} of the unsharded run's, its last "
+          f"{rel_diff(hist[-1, 1], run.hist[-1, 1]):.3e}; '{line}'; no "
+          f"kernel launch; plain calls {sharded.plain_calls}; "
+          f"{sharded.seconds:.2f} s")
+    out["--n-devices 2"] = (err0, sharded.seconds)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    card = api.ElasticPropagator(model, survey, device=dev, engine="xla")
+    obs = card.apply_forward()
+    got = card.apply_gradient(init, obs)
+    seconds = time.perf_counter() - t0
+    counts, plain_calls = read_counts()
+    _no_kernel("[30d api engine='xla']", counts, plain_calls, "propagate")
+    cpu = api.ElasticPropagator(model, survey, device="cpu")
+    ref = cpu.apply_gradient(init, obs)
+    errs = [rel_diff(obs, cpu.apply_forward()),
+            abs(got["misfit"] - ref["misfit"]) / ref["misfit"]] + [
+        rel_diff(got[k], ref[k])
+        for k in ("grad_vp", "grad_vs", "grad_rho", "grad_stf")]
+    check(card.rs is None and cpu.rs is None and got["misfit"] > 0
+          and max(errs) <= tol,
+          f"[30d api engine='xla'] float32 on the card against the CPU: "
+          f"{errs}")
+    print(f"[30d api] ElasticPropagator(dtype=torch.float32, device='cuda', "
+          f"engine='xla') on the survey no plan takes against device='cpu': "
+          f"data, misfit, vp, vs, rho, stf {[f'{e:.3e}' for e in errs]} <= "
+          f"{tol}; no kernel launch; plain calls {plain_calls}; "
+          f"apply_forward and apply_gradient {seconds:.2f} s on the card")
+    out["api"] = errs
+
+    # full width: the CLI's default grid (101x201, npml 32, nt=1501) and
+    # the reference survey's 19 shots and receiver row, with the corners
+    path = os.path.join(tmp, "reference_corners.json")
+    corner_survey(101, 201, 32, src_x=np.arange(10, 191, 10)).to_json(path)
+    full = ["--niter", "1", "--engine", "xla", "--survey-json", path]
+    runs = {}
+    for tag, flags in (("float32", []), ("float64", ["--x64"])):
+        runs[tag] = r = _card_invert([*full, *flags],
+                                     os.path.join(tmp, "full_" + tag))
+        label = f"[30d invert {' '.join(full[:4] + flags)}, full width]"
+        _no_kernel(label, r.counts, r.plain_calls, "propagate")
+        named = f"engine: plain PyTorch (cuda:0, {tag})" in r.printed
+        chunk = re.search(r"shot-chunk auto: .*", r.printed)
+        check(named and np.isfinite(r.hist).all() and len(r.hist) >= 1,
+              f"{label}: loss.txt {r.hist}, engine line named: {named}")
+        print(f"{label}: 19 shots, 183 receivers, 165x265, nt=1501; "
+              f"{chunk.group(0) if chunk else 'shot-chunk: one chunk'}; "
+              f"loss.txt {r.hist[:, 1].tolist()}; plain calls "
+              f"{r.plain_calls}; {r.seconds:.2f} s on the card, peak "
+              f"memory {r.peak_bytes / 1e9:.3f} GB over what was allocated")
+    f32, f64 = runs["float32"].hist[0, 1], runs["float64"].hist[0, 1]
+    err = abs(f32 - f64) / abs(f64)
+    check(f64 > 0 and err <= F64_LOSS_TOL,
+          f"[30d full width] float32 loss at the starting model {f32} "
+          f"against float64 {f64}: {err} > {F64_LOSS_TOL}")
+    print(f"[30d full width] the loss at the starting model (loss.txt's "
+          f"first row), float32 on the card against float64 on the card: "
+          f"{err:.3e} <= {F64_LOSS_TOL} relative")
+    out["full width"] = {"loss_err": err, **{
+        tag: (r.seconds, r.peak_bytes) for tag, r in runs.items()}}
     return out
 
 

@@ -39,17 +39,23 @@ class ElasticPropagator:
     """Forward modeling and adjoint gradients for one (model, survey) pair,
     the gradient on one device or with the shots sharded over several.
 
-    A float32 survey that fits a plan (a receiver row, a multi-row spread,
-    a column, a fiber, a ragged union: `parallel._cuda_plan`) runs
-    through `cuda_engine`: the CUDA kernels on a CUDA device, their plain
-    versions on the CPU.  Float64 runs the plain propagator, the
-    counterpart of the JAX package's XLA engine, on the device named (the
-    card too), and so does on the CPU a float32 survey no plan takes; on
-    another device such a survey raises, since the kernels cannot take it.
-    `self.rs` is the planned RowSurvey or FiberSurvey, or None."""
+    engine='auto' (the default): a float32 survey that fits a plan (a
+    receiver row, a multi-row spread, a column, a fiber, a ragged union:
+    `parallel.try_plan`) runs through `cuda_engine`, the CUDA kernels on a
+    CUDA device and their plain versions on the CPU; float64 runs the plain
+    propagator on the device named, and so does a float32 survey no plan
+    takes on the CPU.  On another device such a survey raises, naming
+    engine='xla': the port runs the plain propagator on the card only when
+    asked.  engine='xla' runs the plain propagator on the device named in
+    either dtype, the counterpart of the JAX package's XLA engine, which
+    its api always runs.  `self.rs` is the planned RowSurvey or
+    FiberSurvey, None where the plain propagator runs."""
 
     def __init__(self, model: Model, survey: Survey, f0: float = 10.0, *,
-                 device="cuda", dtype=torch.float32):
+                 device="cuda", dtype=torch.float32, engine: str = "auto"):
+        if engine not in ("auto", "xla"):
+            raise ValueError(f"engine must be 'auto' or 'xla', got "
+                             f"{engine!r}")
         self.model = model
         self.survey = survey
         self.device = torch.device(device)
@@ -58,19 +64,14 @@ class ElasticPropagator:
                              nx=model.nx + 2 * model.nPml,
                              dz=model.dz, dx=model.dx, nt=model.nt,
                              dt=model.dt, f0=f0, npml=model.nPml)
-        planned = None
-        if dtype == torch.float32:
-            try:
-                planned = parallel._cuda_plan(self.cfg, survey)
-            except ValueError:  # no plan takes the survey
-                pass
-        if (self.device.type != "cpu" and dtype == torch.float32
-                and planned is None):
+        kernel_route = engine == "auto" and dtype == torch.float32
+        plan = parallel.try_plan(self.cfg, survey) if kernel_route else None
+        if kernel_route and plan is None and self.device.type != "cpu":
             raise ValueError(
                 "the survey's receivers lie outside the range the CUDA "
-                "kernels record.  dtype=torch.float64 runs the plain "
-                "propagator on this device, device='cpu' on the CPU.")
-        self.rs = None if planned is None else planned[0].rs
+                "kernels record: engine='xla' runs the plain propagator on "
+                f"{self.device}")
+        self.rs = None if plan is None else plan.rs
         self.geoms = parallel.survey_to_geoms(survey, model.nPml,
                                               device=self.device, dtype=dtype)
         stf = torch.as_tensor(ricker(f0, model.nt, model.dt), dtype=dtype,
@@ -92,7 +93,6 @@ class ElasticPropagator:
         lam, mu, rr = self._padded(vp if vp is not None else m.vp,
                                    vs if vs is not None else m.vs,
                                    rho if rho is not None else m.rho)
-        # without a plan: float64, or float32 on the CPU
         fwd = parallel.make_forward(self.cfg, self.survey,
                                     use_kernels=self.rs is not None,
                                     device=self.device, dtype=self.dtype)
@@ -129,7 +129,7 @@ class ElasticPropagator:
             loss = (parallel.make_cuda_misfit(self.cfg, survey, channels=ch)
                     if mesh is None else parallel.make_cuda_sharded_misfit(
                         self.cfg, survey, mesh, channels=ch))
-        else:  # float64, or float32 on the CPU: __init__ raises elsewhere
+        else:  # engine='xla', float64, or no plan on the CPU
             base = (parallel.make_local_misfit(self.cfg, channels=ch)
                     if mesh is None else parallel.make_sharded_misfit(
                         self.cfg, mesh, channels=ch))

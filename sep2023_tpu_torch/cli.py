@@ -17,23 +17,30 @@ update, the joint source inversion, resume, the reference's JSON and
 scratch files, the on-device L-BFGS (`--optimizer ondevice`), and the
 shots sharded over several devices (`--n-devices`: every CUDA device by
 default, as the JAX CLI shards over every visible device; k CPU shards with
---device cpu).  `bench` is the work of the port's benchmark (M8).
+--device cpu).  `bench`, the port's benchmark, is not ported yet.
 
 Engines (`resolve_engine`), as the JAX CLI picks its Pallas kernels or its
-XLA engine, with the CUDA kernels for the one and the plain PyTorch
-version for the other, which runs on whatever device `--device` names
-(`cuda`, the default, or `cpu`) and never moves to another:
-  `--x64` (invert, rtm)    the plain version in float64 on --device
-  `invert --engine xla`    the plain version on --device
-  `invert --engine pallas` the CUDA kernels: needs --device cuda, float32
-                           and a survey the kernels plan; raises otherwise
-  `--engine auto`          the CUDA kernels in float32 on --device cuda (a
-                           survey they cannot plan raises and names
-                           --engine xla), the plain version on --device cpu
-`forward` runs the kernels on the card and their plain versions with
---device cpu.  The `engine:` line names the engine, and the plain one its
-device and dtype.  Models are synthesized (models.py) because the
-reference git-ignores its Models/*.txt grids.
+XLA engine, from the survey's plan (`parallel.try_plan`) before anything
+runs.  The kernel route is the CUDA kernels on --device cuda and their
+plain versions on --device cpu (the JAX package runs its Pallas kernels in
+interpret mode there); the plain PyTorch version, the XLA engine's
+counterpart, runs on whatever device --device names (`cuda`, the default,
+or `cpu`):
+  `invert --engine xla`    the plain version
+  `invert --engine pallas` the kernel route; float64 (--x64) and a survey
+                           no plan takes raise and name --engine xla
+  `--engine auto`          the kernel route in float32 on --device cuda,
+                           where a survey no plan takes raises and names
+                           --engine xla; the plain version otherwise
+                           (--device cpu, --x64)
+The JAX CLI drops to its XLA engine where no plan takes the survey; the
+port runs the plain version on the card only when asked (--engine xla).
+`rtm` takes auto, `forward` the kernels on the card and their plain
+versions with --device cpu.  The `engine:` line names what runs: `CUDA
+kernels (...), receiver row` on the card, `plain versions of the CUDA
+kernels (cpu, float32), receiver row` on the CPU, `plain PyTorch (cuda:0,
+float32)` for the plain version.  Models are synthesized (models.py)
+because the reference git-ignores its Models/*.txt grids.
 """
 from __future__ import annotations
 
@@ -229,27 +236,29 @@ def build_stage_loss(cfg, survey, geoms, *, use_kernels, shot_chunk,
 
 
 def resolve_engine(engine: str, device, dtype, plan) -> bool:
-    """Whether a run takes the CUDA kernels (True) or the plain PyTorch
-    version on `device` (False): the JAX CLI's choice between its Pallas
-    kernels and its XLA engine (sep2023_tpu/cli.py:338-342), where the
-    plain version is the XLA engine and runs on the device asked for, the
-    card included.  engine: --engine (auto, xla, pallas); plan: the
-    survey's FastPlan, None when no plan takes it.  auto takes the kernels
-    for float32 on a CUDA device and the plain version otherwise; xla the
-    plain version always; pallas the kernels.  Raises ValueError where the
-    kernels are asked for and cannot run: pallas off a CUDA device or in
-    float64, and a survey no plan takes under pallas or auto (the JAX CLI
-    drops to XLA there; the port does not fall back, and names
-    --engine xla)."""
+    """Whether a run takes the kernel route (True) or the plain PyTorch
+    version on `device` (False), chosen from the survey's plan before
+    anything runs: the JAX CLI's choice between its Pallas kernels and its
+    XLA engine (sep2023_tpu/cli.py:338-343), where the plain version is the
+    XLA engine's counterpart and runs on the device asked for, the card
+    included.  engine: --engine (auto, xla, pallas); plan: the survey's
+    FastPlan, None when a receiver lies outside the range the kernels
+    record (`parallel.try_plan`).  The kernel route is the CUDA kernels on
+    a CUDA device and their plain versions on the CPU, as the JAX package
+    runs its Pallas kernels in interpret mode there.  xla takes the plain
+    version; auto the kernel route for float32 on a CUDA device, else the
+    plain version; pallas the kernel route on either device.  Raises
+    ValueError where the kernel route is asked for and cannot run: pallas
+    in float64 (the kernels compute float32), and a survey no plan takes
+    under pallas, or under auto in float32 on a CUDA device.  The JAX CLI
+    drops to XLA there; the port runs the plain version only when asked,
+    and names --engine xla."""
     device = torch.device(device)
     if engine == "xla":
         return False
-    if engine == "pallas" and device.type != "cuda":
-        raise ValueError(f"--engine pallas runs on --device cuda, not "
-                         f"--device {device.type}")
     if engine == "pallas" and dtype != torch.float32:
         raise ValueError("--engine pallas computes in float32: --x64 runs "
-                         "on --engine xla or auto")
+                         "on --engine xla")
     if engine == "auto" and (device.type != "cuda" or dtype != torch.float32):
         return False
     if plan is None:
@@ -257,15 +266,6 @@ def resolve_engine(engine: str, device, dtype, plan) -> bool:
                          "receivers: --engine xla runs it on the plain "
                          f"PyTorch version on --device {device.type}")
     return True
-
-
-def try_plan(cfg, survey):
-    """The survey's FastPlan (`parallel._cuda_plan`), or None when no plan
-    takes it."""
-    try:
-        return parallel._cuda_plan(cfg, survey)[0]
-    except ValueError:
-        return None
 
 
 def plain_engine_name(device, dtype) -> str:
@@ -414,10 +414,11 @@ def cmd_invert(args):
                   + parallel.state_bytes_per_shot(cfg, itemsize=isz)) / 2 ** 30
             print(f"shot-chunk auto: {args.shot_chunk} shots/chunk "
                   f"(~{gb:.2f} GB strips and planes/shot)")
-    plan = try_plan(cfg, survey)
+    plan = parallel.try_plan(cfg, survey)
     use_kernels = resolve_engine(args.engine, device, dtype, plan)
-    print("engine: " + (cuda_engine.plan_engine_name(plan) if use_kernels
-                        else plain_engine_name(stf.device, dtype)))
+    print("engine: " + (
+        cuda_engine.plan_engine_name(plan, device=stf.device) if use_kernels
+        else plain_engine_name(stf.device, dtype)))
     # the twin data, the --src-update synthetics and the scratch dumps run
     # through the same engine and chunks as the stage losses
     def make_fwd(survey):
@@ -764,7 +765,7 @@ def cmd_rtm(args):
     survey_tools.check_reach(cfg, survey, float(vp_t.max()))
 
     use_kernels = resolve_engine("auto", device, dtype,
-                                 try_plan(cfg, survey))
+                                 parallel.try_plan(cfg, survey))
     if not use_kernels:
         print("engine: " + plain_engine_name(stf.device, dtype))
     if args.physics == "acoustic":
@@ -886,10 +887,12 @@ def main(argv=None):
     i.add_argument("--engine", default="auto",
                    choices=("auto", "xla", "pallas"),
                    help="the JAX CLI's engine choice: pallas = the CUDA "
-                        "kernels (--device cuda, float32), xla = the plain "
-                        "PyTorch version on --device, auto = the kernels "
-                        "for float32 on --device cuda, else the plain "
-                        "version")
+                        "kernels (float32; their plain versions with "
+                        "--device cpu), xla = the plain PyTorch version on "
+                        "--device, auto = the kernels for float32 on "
+                        "--device cuda, else the plain version; a survey "
+                        "no kernel plan takes raises under pallas, and "
+                        "under auto on the card, naming --engine xla")
     i.add_argument("--optimizer", default="scipy",
                    choices=("scipy", "ondevice"),
                    help="scipy L-BFGS-B, or the on-device L-BFGS with a "

@@ -32,7 +32,7 @@ def params_from_numpy(lam, mu, rho, stf, geoms, *, device,
     return t(lam), t(mu), t(rho), t(stf), geom
 
 
-def acgeom_from_jax(geom, *, device="cpu") -> AcGeom:
+def acgeom_from_jax(geom, *, device) -> AcGeom:
     """The port's AcGeom on `device` from any object with the AcGeom field
     names (the JAX package's AcGeom of numpy or jax arrays included), index
     arrays as int64, with or without the shot axis."""
@@ -78,7 +78,7 @@ def fiber_survey_from_jax(fs) -> cuda_engine.FiberSurvey:
 
 @torch.no_grad()
 def decoder_from_flax(params, latent, scale: float = 300.0, *,
-                      device="cpu") -> Decoder:
+                      device) -> Decoder:
     """The port's Decoder computing what the flax decoder of
     `examples/neural_reparam_fwi.py` computes with its variables `params`
     ({'params': {'Conv_0': {'kernel', 'bias'}, ...}}, arrays read as

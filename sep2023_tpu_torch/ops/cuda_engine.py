@@ -522,10 +522,16 @@ def plan_fast_path(cfg: SimConfig, rec_z, rec_x, das_w=None
     return plan_for(cfg, make_fiber_survey(rec_z, rec_x, das_w))
 
 
-def plan_engine_name(plan: FastPlan, physics: str = "elastic") -> str:
+def plan_engine_name(plan: FastPlan, physics: str = "elastic",
+                     device="cuda") -> str:
+    """The kernel route's `engine:` line: the CUDA kernels and the plan's
+    receivers on a CUDA device, their plain versions (float32, which the
+    route computes) on any other, where no kernel runs."""
     kind = ("receiver row" if isinstance(plan.rs, RowSurvey)
             else f"{plan.rs.n_rec} point receivers")
-    return f"CUDA kernels ({physics}_fwd.cu + {physics}_bwd.cu), {kind}"
+    if torch.device(device).type == "cuda":
+        return f"CUDA kernels ({physics}_fwd.cu + {physics}_bwd.cu), {kind}"
+    return f"plain versions of the CUDA kernels ({device}, float32), {kind}"
 
 
 def _check_tensor(name, t, shape, device):

@@ -377,32 +377,50 @@ def make_local_misfit(cfg: SimConfig, channels: Sequence[str] = ("ett",),
     return loss
 
 
-def _cuda_plan(cfg: SimConfig, survey: Survey, das_w=None):
-    """(FastPlan, union indices) of the survey (`_pallas_plan`'s
-    counterpart).  A shared spread plans as it is; a ragged survey plans
+def _plan_in_range(cfg: SimConfig, survey: Survey, das_w=None):
+    """(FastPlan, union indices) of the survey, or None when a receiver
+    lies outside the range the kernels record (`cuda_engine.plan_fast_path`
+    returns None).  A shared spread plans as it is; a ragged survey plans
     the union of all its distinct receiver points, which the kernels record
     once per shot, and comes with the (S, R_max) indices with which each
-    shot picks its own (padded) spread out of the union.  Raises ValueError
-    for a survey no plan takes."""
+    shot picks its own (padded) spread out of the union.  A survey in range
+    that the kernels reject (`cuda_engine._check_survey`) raises."""
     if survey.ragged:
-        if das_w is not None:
-            raise ValueError("ragged surveys with directional fiber weights "
-                             "need the plain propagator")
         rz = survey.rec_z + cfg.npml
         rx = survey.rec_x + cfg.npml
         pairs = np.stack([rz.ravel(), rx.ravel()], axis=1)
         uniq, inv = np.unique(pairs, axis=0, return_inverse=True)
         plan = cuda_engine.plan_fast_path(cfg, uniq[:, 0], uniq[:, 1])
-        if plan is None:
-            raise ValueError("the ragged survey's union spread lies outside "
-                             "the recordable range")
-        return plan, torch.from_numpy(inv.reshape(rz.shape).astype(np.int64))
+        return None if plan is None else (plan, torch.from_numpy(
+            inv.reshape(rz.shape).astype(np.int64)))
     plan = cuda_engine.plan_fast_path(cfg, survey.rec_z + cfg.npml,
                                       survey.rec_x + cfg.npml, das_w=das_w)
-    if plan is None:
-        raise ValueError("the survey's receivers lie outside the recordable "
-                         "range")
-    return plan, None
+    return None if plan is None else (plan, None)
+
+
+def _cuda_plan(cfg: SimConfig, survey: Survey, das_w=None):
+    """(FastPlan, union indices) of the survey (`_pallas_plan`'s
+    counterpart, `_plan_in_range`).  Raises ValueError for a survey no plan
+    takes."""
+    if survey.ragged and das_w is not None:
+        raise ValueError("ragged surveys with directional fiber weights "
+                         "need the plain propagator")
+    found = _plan_in_range(cfg, survey, das_w)
+    if found is None:
+        raise ValueError(("the ragged survey's union spread lies"
+                          if survey.ragged else "the survey's receivers lie")
+                         + " outside the recordable range")
+    return found
+
+
+def try_plan(cfg: SimConfig, survey: Survey):
+    """The survey's FastPlan, or None when a receiver lies outside the
+    range the kernels record: what the engine choice of the CLI and the api
+    is made from.  A survey the kernels reject for another reason (a
+    das_channel they do not take, 'weighted' without weights) raises here,
+    before anything runs."""
+    found = _plan_in_range(cfg, survey)
+    return None if found is None else found[0]
 
 
 def _gather_union(syn, uidx_c):

@@ -392,6 +392,48 @@ def adjoint_gap(cfg, rs, args, seed=7):
 TINY_INVERT = ["--nz", "28", "--nx", "48", "--nt", "80", "--npml", "8",
                "--niter", "2"]
 PLAIN_DEVICE_TOL = 1e-9
+# The same in float32, where a survey no plan takes runs on the plain engine
+# (`invert --engine xla`, ElasticPropagator(dtype=torch.float32,
+# engine='xla')): loss.txt, the model, the data and each gradient relative
+# to its max.  In float32 TINY_INVERT's first L-BFGS-B step is below float32
+# resolution (0 iterations, no loss.txt), so float32 `invert` runs at
+# CORNER_INVERT.
+PLAIN_F32_DEVICE_TOL = 1e-6
+CORNER_INVERT = ["--nz", "44", "--nx", "64", "--nt", "200", "--npml", "8",
+                 "--niter", "2"]
+
+
+def corner_survey(nz: int = 28, nx: int = 48, npml: int = 8,
+                  src_x=(10, 20, 30)) -> Survey:
+    """A survey no plan of the kernels takes, by default at TINY_INVERT's
+    grid: a shot at z = 1 at each src_x, the receiver row at z = nz - 6
+    from x = 10 to nx - 11 (the reference survey's at 101x201), and the
+    padded grid's two far corners."""
+    return Survey(src_z=np.ones(len(src_x), int), src_x=np.asarray(src_x),
+                  rec_z=np.array([nz - 6] * (nx - 20) + [-npml,
+                                                          nz + npml - 1]),
+                  rec_x=np.array(list(range(10, nx - 10))
+                                 + [-npml, nx + npml - 1]))
+
+
+def repeated_shot_mesh(n_devices=None, *, device, n_shots=None):
+    """`parallel.shot_mesh` with the device count taken as n_devices: the
+    mesh repeats `device`, as k CPU shards repeat the CPU, so that `invert
+    --n-devices k` shards over one card; None for one shard."""
+    n = min(n_devices or 1, n_shots or n_devices or 1)
+    return (torch.device(device),) * n if n > 1 else None
+
+
+def corner_api_problem():
+    """(Model, Survey, initial Model) of the API on `corner_survey`: the
+    anomaly model at TINY_INVERT's grid (dz = dx = 20, nt = 80, dt =
+    0.002, the CLI's defaults) and vp 3000 everywhere to start from."""
+    nz, nx = 28, 48
+    vp, vs, rho = models.anomaly_vp_vs_rho(nz, nx)
+    model = api.Model(nx=nx, nz=nz, dx=20.0, dz=20.0, nt=80, dt=0.002,
+                      nPml=8, vp=vp, vs=vs, rho=rho)
+    init = api.Model(**{**model.__dict__, "vp": np.full_like(vp, 3000.0)})
+    return model, corner_survey(), init
 
 
 def invert_run(argv, exp):

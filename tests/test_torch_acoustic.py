@@ -99,7 +99,8 @@ def f64():
     rx = np.concatenate([np.arange(14, 54), [20]])
     geoms = _jgeoms([12, 12], [22, 50], rz, rx)
     t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float64)
-    args = (t(lam), t(rho), t(stf), convert.acgeom_from_jax(geoms))
+    args = (t(lam), t(rho), t(stf),
+            convert.acgeom_from_jax(geoms, device="cpu"))
     obs = tac.propagate_acoustic_ad(cfg, args[0] * 1.03, *args[1:]).detach()
     return jcfg, cfg, (lam, rho, stf), geoms, args, obs
 
@@ -366,13 +367,15 @@ def test_rtm_image_time_matches_jax_f64(f64):
     t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float64)
     from sep2023_tpu_torch import imaging
     img, ill = imaging.rtm_image_time(
-        cfg, t(vp), t(rho), t(stf[0]), convert.acgeom_from_jax(one),
-        t(res[0]), return_illum=True)
+        cfg, t(vp), t(rho), t(stf[0]),
+        convert.acgeom_from_jax(one, device="cpu"), t(res[0]),
+        return_illum=True)
     assert np.abs(np.asarray(img_j)).max() > 0
     assert _rel(img.numpy(), img_j) < 1e-10
     assert _rel(ill.numpy(), ill_j) < 1e-10
     only = imaging.rtm_image_time(cfg, t(vp), t(rho), t(stf[0]),
-                                  convert.acgeom_from_jax(one), t(res[0]))
+                                  convert.acgeom_from_jax(one, device="cpu"),
+                                  t(res[0]))
     assert torch.equal(only, img)
     # both shots at once, and the wrapper's plain version with their sum
     both = tac.rtm_image_time_shots(cfg, t(vp), t(rho), args[2], args[3],

@@ -26,7 +26,10 @@ The kernels' sharded loss over a mesh that repeats the card against the
 unsharded loss (loss 1e-6, gradients 2e-5 of each max, exact launches, a
 second evaluation bitwise).  The plain engine on the card in float64
 (`invert --x64`, ElasticPropagator(dtype=torch.float64)) against the same
-run on the CPU, to 1e-9 relative, with no kernel launch.
+run on the CPU, to 1e-9 relative, with no kernel launch, and in float32 on
+a survey no plan takes, which --engine auto and pallas refuse on the card
+(`invert --engine xla`, over a mesh of the card too, and
+ElasticPropagator(engine='xla')) to 1e-6.
 These mirror phases 3, 7-10, 12, 17, 19e, 20-23, 26, 29 and 30 of
 chip_smoke.py;
 they need a CUDA device and nvcc, and skip without a card:
@@ -42,20 +45,23 @@ from sep2023_tpu_torch import (api, cli, imaging, medium, models, parallel,
                                propagator)
 from sep2023_tpu_torch.ops import _build, cuda_acoustic, cuda_engine
 from sep2023_tpu_torch.testing import (AC_CASES, AC_INTERIOR,
-                                       AC_TILE_EDGE_CASES, DOT_TOL,
+                                       AC_TILE_EDGE_CASES, CORNER_INVERT,
+                                       DOT_TOL,
                                        FIBER_CASES, FWD_TOL, GRAD_TOL,
-                                       PLAIN_DEVICE_TOL, RECON_RATIO,
+                                       PLAIN_DEVICE_TOL,
+                                       PLAIN_F32_DEVICE_TOL, RECON_RATIO,
                                        ROW_CASES, TILE_EDGE_CASES,
                                        TILE_EDGE_SEED, TINY_INVERT,
                                        ac_perturbed_cotangent, ac_problem,
                                        ac_tile_edge_problem, acoustic_args,
                                        adjoint_gap, api_problem,
+                                       corner_api_problem, corner_survey,
                                        fiber_problem, grad_errors,
                                        invert_run, max_rel,
                                        perturbed_cotangent,
                                        reconstruction_residual, rel_diff,
-                                       row_problem, strip_errors,
-                                       tile_edge_problem)
+                                       repeated_shot_mesh, row_problem,
+                                       strip_errors, tile_edge_problem)
 
 pytestmark = pytest.mark.cuda
 
@@ -713,3 +719,64 @@ def test_api_float64_on_the_card_matches_cpu(cuda):
         PLAIN_DEVICE_TOL * ref["misfit"]
     for k in ("grad_vp", "grad_vs", "grad_rho", "grad_stf"):
         assert rel_diff(got[k], ref[k]) <= PLAIN_DEVICE_TOL, k
+
+
+def test_unplanned_survey_on_the_card_matches_cpu(cuda, tmp_path, capsys,
+                                                  monkeypatch):
+    """A survey no plan takes (`corner_survey`), which the JAX package runs
+    on its XLA engine (phase 30d): on the card `invert` in float32 under
+    --engine auto and pallas and ElasticPropagator's default engine raise
+    before anything runs, naming the plain engine; `invert --engine xla` at
+    CORNER_INVERT's size (where float32 L-BFGS-B takes steps) names cuda:0
+    and float32, makes no kernel launch and gives --device cpu's loss.txt
+    and model to 1e-6 relative; with --n-devices 2 over a mesh that
+    repeats the card it gives its loss at the starting model to 1e-6;
+    ElasticPropagator(device='cuda', engine='xla') gives device='cpu''s
+    data, misfit and gradients to 1e-6."""
+    tol = PLAIN_F32_DEVICE_TOL
+    path = str(tmp_path / "corners.json")
+    corner_survey(44, 64).to_json(path)
+    argv = [*CORNER_INVERT, "--survey-json", path]
+    monkeypatch.setattr(parallel, "shot_mesh", repeated_shot_mesh)
+    model, survey, init = corner_api_problem()
+    before = (_launches(), cuda_engine.PLAIN_CALLS["propagate"])
+    for flags in ([], ["--engine", "pallas"]):
+        with pytest.raises(ValueError, match="--engine xla runs it"):
+            invert_run([*argv, *flags], str(tmp_path / "refused"))
+    with pytest.raises(ValueError, match="engine='xla'"):
+        api.ElasticPropagator(model, survey, device=cuda)
+    assert (_launches(), cuda_engine.PLAIN_CALLS["propagate"]) == before
+
+    xla = [*argv, "--engine", "xla"]
+    card = invert_run(xla, str(tmp_path / "card"))
+    assert "engine: plain PyTorch (cuda:0, float32)" in capsys.readouterr().out
+    assert _launches() == before[0]
+    assert cuda_engine.PLAIN_CALLS["propagate"] > before[1]
+    cpu = invert_run([*xla, "--device", "cpu"], str(tmp_path / "cpu"))
+    assert card[0].shape == cpu[0].shape and len(card[0]) >= 1
+    assert rel_diff(card[0][:, 1], cpu[0][:, 1]) <= tol
+    for k in cpu[1]:
+        assert rel_diff(card[1][k], cpu[1][k]) <= tol, k
+    sharded = invert_run([*xla, "--n-devices", "2"], str(tmp_path / "mesh"))
+    out = capsys.readouterr().out
+    assert "engine: plain PyTorch (cuda:0, float32)" in out
+    assert "multi-chip: 2-device shot mesh" in out
+    assert sharded[0].shape == card[0].shape
+    assert sharded[0][-1, 1] < sharded[0][0, 1]
+    # the sharded loss adds its shots in another order: held at the
+    # starting model, not along L-BFGS-B's iterates
+    assert rel_diff(sharded[0][0, 1], card[0][0, 1]) <= tol
+    assert _launches() == before[0]
+
+    prop = api.ElasticPropagator(model, survey, device=cuda, engine="xla")
+    assert prop.rs is None
+    obs = prop.apply_forward()
+    got = prop.apply_gradient(init, obs)
+    assert _launches() == before[0]
+    ref_prop = api.ElasticPropagator(model, survey, device="cpu")
+    assert rel_diff(obs, ref_prop.apply_forward()) <= tol
+    ref = ref_prop.apply_gradient(init, obs)
+    assert got["misfit"] > 0
+    assert abs(got["misfit"] - ref["misfit"]) <= tol * ref["misfit"]
+    for k in ("grad_vp", "grad_vs", "grad_rho", "grad_stf"):
+        assert rel_diff(got[k], ref[k]) <= tol, k

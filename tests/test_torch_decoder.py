@@ -33,7 +33,7 @@ def test_decoder_from_flax_matches_flax(nz, nx, width):
                                (-(-nz // 4), -(-nx // 4), width),
                                jnp.float32)
     ref = np.asarray(apply(params))
-    dec = convert.decoder_from_flax(params, latent)
+    dec = convert.decoder_from_flax(params, latent, device="cpu")
     with torch.no_grad():
         out = dec()[:nz, :nx].numpy()
     assert out.shape == ref.shape == (nz, nx)

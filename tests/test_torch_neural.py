@@ -65,7 +65,7 @@ def test_invert_nn_matches_jax():
     latent = jax.random.normal(jax.random.PRNGKey(0),
                                (-(-vp_bg.shape[0] // 4),
                                 -(-vp_bg.shape[1] // 4), 8), jnp.float32)
-    dec = convert.decoder_from_flax(params, latent)
+    dec = convert.decoder_from_flax(params, latent, device="cpu")
     _, losses = tnn.invert_nn(cfg, survey, vp_bg, rho, t(stf), obs,
                               n_steps=12, lr=4e-3, width=8, device="cpu",
                               decoder=dec)
