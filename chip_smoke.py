@@ -83,6 +83,11 @@ on the card when asked (`invert --engine xla`, over a mesh of the card,
 ElasticPropagator(engine='xla'), each against the CPU; at full width
 against float64).
 
+The benchmark last (phase 31): `python -m sep2023_tpu_torch bench`
+(bench_torch.py, bench.py's sections on the kernels) in a process of its
+own at its default budget, every key of its line present and > 0, nothing
+skipped, the card named; the line is echoed after a prefix.
+
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 3,7,8,9,10,20   # those phases only
     python3 chip_smoke.py --phases 17,21           # the acoustic pair
@@ -92,6 +97,7 @@ against float64).
     python3 chip_smoke.py --phases 26,27,28        # the examples' paths
     python3 chip_smoke.py --phases 29              # shot sharding
     python3 chip_smoke.py --phases 30              # the plain engine
+    python3 chip_smoke.py --phases 31              # the bench
 
 Needs one CUDA device and nvcc; exits nonzero, printing no result, without
 them.  Imports neither jax nor sep2023_tpu.  The last line of standard
@@ -3023,6 +3029,103 @@ def _f64_gradient(dev):
                 kernel_seconds=seconds, peak_bytes=peak)
 
 
+# Every key of the bench's line: the flagship's and each section's
+# (bench_torch.py), each a number that must be > 0.
+BENCH_KEYS = ("forward_s", "forward_single_dispatch_s",
+              "single_dispatch_GCell_per_s", "gradient_s",
+              "gradient_GCell_per_s", "gradient_814x2064_GCell_per_s",
+              "forward_814x2064_GCell_per_s", "rock_gradient_s_265x385x4001",
+              "rock_gradient_GCell_per_s",
+              "chunked_gradient_GCell_per_s_12shot_chunk4",
+              "gradient_560x720_GCell_per_s",
+              "acoustic_gradient_GCell_per_s", "plain_forward_s",
+              "plain_forward_GCell_per_s",
+              "gradient_814x2064_nt1001_GCell_per_s",
+              "forward_814x2064_nt1001_GCell_per_s")
+
+
+def phase_bench(dev):
+    """Phase 31: `python -m sep2023_tpu_torch bench` (bench_torch.py) in a
+    process of its own at the default budget, as a user runs it: exit 0,
+    and a last JSON line with metric, value, unit and vs_baseline and every
+    key of BENCH_KEYS in extra, each > 0, nothing skipped, a peak memory
+    for each section, and the card named as torch and nvidia-smi name it
+    (the bench itself checks that each kernel section launched exactly nt
+    a forward and a backward and ran no plain version).  The line is
+    echoed after a prefix.  Then the silent receiver row of its streamed
+    sections: max |syn| of one forward at each of their shapes."""
+    import bench_torch  # the repository root's bench_torch.py
+
+    sections = ("flagship",
+                *(name for name, _ in bench_torch.sections(None, None, dev)))
+    torch.cuda.empty_cache()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("SEP2023_TPU_BENCH_BUDGET_S", "SEP2023_TPU_PROFILE")}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "sep2023_tpu_torch",
+                          "bench"], capture_output=True, text=True, env=env,
+                         timeout=600)
+    seconds = time.perf_counter() - t0
+    check(res.returncode == 0, f"[31] bench exited {res.returncode}: "
+          f"{res.stderr[-3000:]}")
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+    check(len(lines) == len(sections),
+          f"[31] bench printed {len(lines)} JSON lines")
+    line = json.loads(lines[-1])
+    extra = line["extra"]
+    check(line["unit"] == "GCell/s" and line["metric"] == bench_torch.METRIC
+          and line["value"] > 0
+          and line["vs_baseline"] == line["value"] / 1.0,
+          f"[31] bench line {line}")
+    missing = [k for k in BENCH_KEYS
+               if not (isinstance(extra.get(k), float) and extra[k] > 0)]
+    check(not missing, f"[31] bench keys missing or not > 0: {missing}")
+    check(extra["skipped"] == [], f"[31] bench skipped {extra['skipped']}")
+    check(sorted(extra["peak_GB"]) == sorted(sections),
+          f"[31] peak memory of {sorted(extra['peak_GB'])}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.splitlines()[0]
+    check(extra["device"] == torch.cuda.get_device_name(0)
+          and f"{extra['device']}, {extra['power_limit']}" == smi.strip(),
+          f"[31] bench names {extra['device']!r}, "
+          f"{extra['power_limit']!r}; nvidia-smi {smi!r}")
+    print(f"[31] bench, {seconds:.1f} s wall: {lines[-1]}")
+    silent = {}
+    with torch.no_grad():
+        for nz, nx, nt in ((814, 2064, 601), (560, 720, 1001),
+                           (814, 2064, 1001)):
+            p = bench_torch.stream_problem(nz, nx, nt, device=dev)
+            syn = cuda_engine.forward_cuda_plan(p.plan, *p.args, *p.src)
+            silent[f"{nz}x{nx}, nt={nt}"] = float(syn.abs().max())
+    print(f"[31] max |syn| on the streamed sections' row: {silent}")
+    # whether a call of the flagship's and the gradient section's function
+    # waits for the card: host seconds until it returns against the
+    # seconds until the card is done, each after a warm call
+    ref = bench_torch._build(dev)
+    fwd = lambda: cuda_engine.forward_cuda_plan(  # noqa: E731
+        ref.plan, *ref.lame, ref.stf, *ref.src)
+    data = fwd()
+    grad = bench_torch.misfit_value_and_grad(ref.cfg, ref.survey)
+    w = torch.ones(ref.survey.n_shots, device=dev)
+    returned = {}
+    for name, fn in (("forward", fwd),
+                     ("gradient", lambda: grad(*ref.lame, ref.stf, data,
+                                               w))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        returned[name] = (t1 - t0, time.perf_counter() - t0)
+    print("[31] seconds until a call returns, until the card is done: "
+          + ", ".join(f"{k} {a:.4f}, {b:.4f}"
+                      for k, (a, b) in returned.items()))
+    return dict(line=line, seconds=seconds, silent=silent,
+                returned=returned)
+
+
 def kernel_record(results):
     """The JSON record of every kernel.  `launches` are the counts of the
     kernel's main path, read just after it ran from counts set to 0 just
@@ -3247,6 +3350,7 @@ def main(argv=None):
         (29, lambda: phase_sharded(dev)),
         (30, lambda: phase_plain_engine(dev)),
         (6, lambda: phase_profile(dev)),
+        (31, lambda: phase_bench(dev)),
     ]
     only = {int(k) for k in args.phases.split(",") if k.strip()}
     for number, run in phases:

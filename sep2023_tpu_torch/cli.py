@@ -8,16 +8,20 @@
               --head rock_gassmann -> Main-004 (--head rock_vrh: 00x)
               --model rock (a velocity head) -> Main-005 (NO-PCS)
   rtm       reverse-time-migration image of a layered twin  (main.cu:322+)
+  bench     the benchmark: bench_torch.py at the repository root, bench.py's
+            sections on the CUDA kernels, one JSON line (on the card only)
 
 PyTorch counterpart of `sep2023_tpu/cli.py`.  `forward` runs both physics
 (`--physics elastic|acoustic`) and `rtm` both imaging conditions (the
 acoustic time-derivative one by default, the elastic zero-lag one).
-`invert` takes every option of the JAX package's: the conditioned misfits, the multiscale stage loop with the per-stage source
-update, the joint source inversion, resume, the reference's JSON and
-scratch files, the on-device L-BFGS (`--optimizer ondevice`), and the
-shots sharded over several devices (`--n-devices`: every CUDA device by
-default, as the JAX CLI shards over every visible device; k CPU shards with
---device cpu).  `bench`, the port's benchmark, is not ported yet.
+`invert` takes every option of the JAX package's: the conditioned misfits,
+the multiscale stage loop with the per-stage source update, the joint
+source inversion, resume, the reference's JSON and scratch files, the
+on-device L-BFGS (`--optimizer ondevice`), and the shots sharded over
+several devices (`--n-devices`: every CUDA device by default, as the JAX
+CLI shards over every visible device; k CPU shards with --device cpu).
+`bench` runs on the card only: its sizes are the JAX bench's, where the
+plain versions take hours.
 
 Engines (`resolve_engine`), as the JAX CLI picks its Pallas kernels or its
 XLA engine, from the survey's plan (`parallel.try_plan`) before anything
@@ -46,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import glob
+import importlib.util
 import json
 import os
 import time
@@ -392,7 +397,7 @@ def cmd_invert(args):
 
     true_params, init_params, bounds, invert_names = \
         models.twin_experiment_setup(args.head, args.nz, args.nx,
-                                     model=args.model)
+                                     model=args.model, dtype=dtype)
     head = heads.HEADS[args.head](grid, init_params,
                                   mask=heads.default_mask(grid, 4),
                                   bounds=bounds)
@@ -800,6 +805,22 @@ def cmd_rtm(args):
     return img, illum, peak
 
 
+def cmd_bench(args):
+    """`bench`: loads bench_torch.py from the repository root and runs its
+    main() (sep2023_tpu/cli.py's cmd_bench runs bench.py so), which prints
+    the benchmark's JSON line.  It runs on the card only: without a CUDA
+    device it raises before printing anything."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("bench needs a CUDA device (an NVIDIA GPU); it "
+                           "has no CPU route")
+    spec = importlib.util.spec_from_file_location(
+        "bench_torch", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "bench_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main()
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="sep2023_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -916,6 +937,11 @@ def main(argv=None):
     r.add_argument("--x64", action="store_true",
                    help="float64: the plain PyTorch version on --device")
     r.set_defaults(fn=cmd_rtm)
+
+    b = sub.add_parser("bench", help="bench_torch.py: bench.py's sections "
+                       "on the CUDA kernels, one JSON line (needs a card; "
+                       "env SEP2023_TPU_BENCH_BUDGET_S, SEP2023_TPU_PROFILE)")
+    b.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     return args.fn(args)

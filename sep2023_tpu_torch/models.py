@@ -2,7 +2,8 @@
 
 A numpy/scipy copy of `sep2023_tpu/models.py` (the port imports no jax);
 the Gassmann true model of `twin_experiment_setup(model="rock")` goes
-through the port's `rock_physics`.
+through the port's `rock_physics`, in the run's dtype where the JAX
+package's goes through jnp in its x64 setting.
 
 The reference's model grids (Models/*.txt, e.g.
 Anomaly_P-WAVE_VELOCITY_101_201.txt, Main-001:78-80) are excluded from its
@@ -74,19 +75,22 @@ def anomaly_vp_vs_rho(nz: int = 101, nx: int = 201,
 
 
 def twin_experiment_setup(head: str, nz: int, nx: int,
-                          model: str = "anomaly"):
+                          model: str = "anomaly", dtype=torch.float64):
     """True/initial parameter sets (+ bounds and invertible names) for the
     twin experiments of the reference drivers Main-001..005, per head.
 
     model='rock' with a velocity head is the Main-005 flow (NO-PCS):
-    invert vp/vs/rho directly on data from the Gassmann reservoir model,
-    computed in float64 (the JAX CLI without --x64 takes its square roots
-    and lam, mu in float32; PERF.md section 7).
+    invert vp/vs/rho directly on data from the Gassmann reservoir model.
+    dtype is the run's, the counterpart of the JAX package's x64 switch:
+    in float32 the model's two square roots and lam, mu are float32, the
+    rest float64, as the JAX CLI computes them without --x64 (jnp in
+    rock_physics, numpy here); in float64 all of it is float64, as with
+    --x64.  The returned arrays are float64 either way.
     """
     if model == "rock" and head not in ("rock_vrh", "rock_gassmann"):
         phi, cc, sw = (torch.from_numpy(a) for a in reservoir_pcs(nz, nx))
-        lam, mu, rho = (a.numpy()
-                        for a in rp.pcs_to_lame_gassmann(phi, cc, sw))
+        lam, mu, rho = (a.numpy() for a in
+                        rp.pcs_to_lame_gassmann(phi, cc, sw, dtype=dtype))
         vp = np.sqrt((lam + 2 * mu) / rho)
         vs = np.sqrt(mu / rho)
     else:

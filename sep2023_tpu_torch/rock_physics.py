@@ -81,12 +81,17 @@ def biot_gassmann_ku(phi, k_f, k_s, k_d):
     return (phi * k_d + (1 - (1 + phi) * (k_d / k_s)) * k_f) / denom
 
 
-def pcs_to_lame_gassmann(phi, cc, sw, method: str = "Voigt"):
+def pcs_to_lame_gassmann(phi, cc, sw, method: str = "Voigt", dtype=None):
     """Gassmann fluid-substitution PCS model (FWI_ops.py:567-619; the
     reference uses vp^2 = (k_u + 0.75 mu_d)/rho, a 3/4 rather than 4/3
     coefficient, reproduced as-is for parity, PARITY.md).  lam is formed
     from vp and vs as the reference does, not from the moduli.  Returns
-    (lam, mu, rho)."""
+    (lam, mu, rho).
+
+    dtype: where given, the two square roots and lam, mu are taken in it,
+    their arguments and rho cast to it, and rho is returned as computed:
+    what the JAX package computes without x64 on float64 inputs, where
+    its jnp arithmetic (sep2023_tpu/rock_physics.py:91-94) is float32."""
     rho_f = weighted_average(RHO_WATER, RHO_HYDRO, sw)
     k_f = weighted_average(K_WATER, K_HYDRO, sw)
     k_s = vrh(K_CLAY, K_QUARTZ, cc, method)
@@ -96,8 +101,9 @@ def pcs_to_lame_gassmann(phi, cc, sw, method: str = "Voigt"):
     k_d, mu_d = drained_moduli(phi, k_s, mu_s)
     k_u = biot_gassmann_ku(phi, k_f, k_s, k_d)
     rho = weighted_average(rho_f, rho_s, phi)
-    vp = torch.sqrt((k_u + 0.75 * mu_d) / rho)
-    vs = torch.sqrt(mu_d / rho)
-    lam = rho * (vp ** 2 - 2.0 * vs ** 2)
-    mu = rho * vs ** 2
+    cast = (lambda a: a) if dtype is None else (lambda a: a.to(dtype))
+    vp = torch.sqrt(cast((k_u + 0.75 * mu_d) / rho))
+    vs = torch.sqrt(cast(mu_d / rho))
+    lam = cast(rho) * (vp ** 2 - 2.0 * vs ** 2)
+    mu = cast(rho) * vs ** 2
     return lam, mu, rho

@@ -163,6 +163,26 @@ def test_models():
         np.testing.assert_allclose(t[2][k], j[2][k], rtol=1e-14)
 
 
+@pytest.mark.parametrize("x64", [False, True], ids=["float32", "float64"])
+def test_rock_true_model_follows_the_jax_x64_switch(x64):
+    """Main-005's Gassmann true model in the run's dtype equals the JAX
+    package's under the same x64 setting, bit for bit: without x64 JAX
+    takes the two square roots and lam, mu in float32 (the rest numpy
+    float64), and the port's float32 run (`invert` without --x64) does the
+    same; with x64 both are float64 throughout."""
+    import jax
+    dtype = F64 if x64 else torch.float32
+    with jax.enable_x64(x64):
+        j = jmodels.twin_experiment_setup("vp_vs_rho", 20, 30, model="rock")
+    t = tmodels.twin_experiment_setup("vp_vs_rho", 20, 30, model="rock",
+                                      dtype=dtype)
+    for k in ("vp", "vs", "rho"):
+        assert t[0][k].dtype == np.float64 and j[0][k].dtype == np.float64
+        np.testing.assert_array_equal(t[0][k], j[0][k])
+    for k in t[1]:
+        np.testing.assert_array_equal(t[1][k], j[1][k])
+
+
 def test_survey_tools():
     rng = np.random.default_rng(4)
     vp = rng.uniform(2500.0, 3500.0, (20, 30))

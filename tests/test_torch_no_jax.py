@@ -1,9 +1,10 @@
 """The port stands alone and never falls back.
 
 * Importing sep2023_tpu_torch (cli, api, the CUDA engines, the invert
-  path's modules with rock_physics and ops.signal, acoustic, imaging)
-  loads neither jax nor sep2023_tpu: the machine with the card has no
-  JAX.  No module of the port names either in an import statement.
+  path's modules with rock_physics and ops.signal, acoustic, imaging) and
+  bench_torch.py loads neither jax nor sep2023_tpu: the machine with the
+  card has no JAX.  No module of the port names either in an import
+  statement.
 * forward_cuda_plan, backward_cuda_plan, reconstruct_cuda_plan,
   propagate_cuda_plan, make_cuda_misfit, ElasticPropagator.apply_gradient
   and `cli invert` on a device that is not the CPU build and launch the
@@ -50,6 +51,8 @@ def test_import_loads_no_jax():
         "import das_fwi_torch, das_modeling_torch, overthrust_das_torch, "
         "marmousi_scale_torch, neural_reparam_fwi_torch, "
         "make_figures_torch\n"
+        "sys.path.insert(0, '.')\n"
+        "import bench_torch\n"
         "import sep2023_tpu_torch.analytic, sep2023_tpu_torch.das\n"
         "import sep2023_tpu_torch, sep2023_tpu_torch.cli, "
         "sep2023_tpu_torch.api, sep2023_tpu_torch.ops.cuda_engine, "
@@ -71,10 +74,10 @@ def test_import_loads_no_jax():
 
 
 def test_no_module_imports_jax():
-    """Every module of the port, chip_smoke.py and the port's examples:
-    no import statement names jax or the JAX package."""
+    """Every module of the port, chip_smoke.py, bench_torch.py and the
+    port's examples: no import statement names jax or the JAX package."""
     files = [*sorted((REPO / "sep2023_tpu_torch").rglob("*.py")),
-             REPO / "chip_smoke.py",
+             REPO / "chip_smoke.py", REPO / "bench_torch.py",
              *sorted((REPO / "examples").glob("*_torch.py"))]
     assert len(files) > 20
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|sep2023_tpu|optax|flax)"
