@@ -59,7 +59,7 @@ import numpy as np
 import torch
 
 from sep2023_tpu_torch import (acoustic, heads, imaging, medium, models,
-                               optimize, parallel)
+                               optimize, parallel, spans)
 from sep2023_tpu_torch import io as sio
 from sep2023_tpu_torch import survey_tools
 from sep2023_tpu_torch.config import (SimConfig, Survey, klauder, ricker,
@@ -276,6 +276,24 @@ def resolve_engine(engine: str, device, dtype, plan) -> bool:
 def plain_engine_name(device, dtype) -> str:
     """The plain engine's `engine:` line: plain PyTorch (cuda:0, float64)."""
     return f"plain PyTorch ({device}, {str(dtype).removeprefix('torch.')})"
+
+
+def host_line(records) -> str | None:
+    """The host time of the evaluations among span records, per
+    evaluation (`spans.per_evaluation`): scipy's L-BFGS-B between them
+    (left out where no scipy ran), the unpack of x, the head, the kernel
+    library's calls that enqueue the launches, the wait for the card and
+    the copies back; and the KiB copied each way.  None without an
+    evaluation."""
+    p = spans.per_evaluation(records)
+    if p is None:
+        return None
+    parts = [f"{k} {p[k]:.3f} ms" for k in ("scipy", "unpack", "head",
+                                             "enqueue", "wait")
+             if p[k] is not None]
+    return (f"host per evaluation: {', '.join(parts)}; copied "
+            f"{p['h2d_kib']:.1f} KiB to the device, {p['d2h_kib']:.1f} KiB "
+            "to the host")
 
 
 def shot_weights(survey, *, device, dtype):
@@ -569,7 +587,7 @@ def cmd_invert(args):
         stage_bounds = ({k: bounds[k] for k in invert_names} if bounds
                         else None)
         rdir = os.path.join(args.exp_name, "Results")
-        t0 = time.perf_counter()
+        t0, ns0 = time.perf_counter(), time.perf_counter_ns()
         if args.optimizer == "ondevice":
             print(f"on-device L-BFGS: {iters_per_stage} iterations, "
                   f"head={args.head}")
@@ -612,6 +630,9 @@ def cmd_invert(args):
         print(f"stage misfit {misfit:.6e} after {stage_nit} iterations "
               f"({stage_evals} evaluations, {per_eval:.3f} s each, "
               f"{cells / per_eval / 1e9:.2f} GCell/s gradient)")
+        line = host_line(spans.select(ns0, time.perf_counter_ns()))
+        if line:
+            print(line)
 
     if args.scratch_dir:
         # final synthetics / residuals / observed data, the reference's

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from sep2023_tpu_torch import rock_physics as rp
+from sep2023_tpu_torch import spans
 from sep2023_tpu_torch.config import Grid
 from sep2023_tpu_torch.medium import resize_and_pad
 
@@ -49,14 +50,15 @@ class Head:
             p = params[name]
             pad = resize_and_pad(p, self.grid.nz_phys, self.grid.nx_phys,
                                  self.grid.npml)
-            mask = self.mask.to(p.device, p.dtype)
-            ref = self.refs[name].to(p.device, p.dtype)
+            mask = spans.h2d(self.mask.to(p.device, p.dtype))
+            ref = spans.h2d(self.refs[name].to(p.device, p.dtype))
             out[name] = mask * pad + (1.0 - mask) * ref
         return out
 
     def apply(self, params: Dict[str, torch.Tensor]):
-        b = self.blend(params)
-        return self.to_lame(*(b[n] for n in self.param_names))
+        with spans.span("heads.apply"):
+            b = self.blend(params)
+            return self.to_lame(*(b[n] for n in self.param_names))
 
 
 def _make(grid: Grid, names, init: Dict[str, np.ndarray], to_lame,

@@ -60,7 +60,7 @@ import numpy as np
 import torch
 
 from sep2023_tpu_torch import cpml as cpml_mod
-from sep2023_tpu_torch import propagator
+from sep2023_tpu_torch import propagator, spans
 from sep2023_tpu_torch.config import SimConfig
 from sep2023_tpu_torch.medium import material_fields
 from sep2023_tpu_torch.ops import _build
@@ -452,7 +452,7 @@ class FastPlan:
             return None
         hit = self._receivers.get((device, acoustic))
         if hit is None:
-            up = lambda a: torch.from_numpy(a).to(device)
+            up = lambda a: spans.h2d(torch.from_numpy(a).to(device))
             rs = self.rs
             rec_w = None
             if self.cfg.das_channel == "weighted" and not acoustic:
@@ -488,10 +488,9 @@ class FastPlan:
                             ("src_x", sx, self.cfg.nx)):
             if a.min() < 0 or a.max() >= hi:
                 raise ValueError(f"{name} outside [0, {hi}): {a.tolist()}")
-        return (torch.from_numpy(sz.astype(np.int32)).to(device),
-                torch.from_numpy(sx.astype(np.int32)).to(device),
-                torch.from_numpy(np.frombuffer(rz, np.float32).copy()
-                                 ).to(device))
+        up = lambda a: spans.h2d(torch.from_numpy(a).to(device))
+        return (up(sz.astype(np.int32)), up(sx.astype(np.int32)),
+                up(np.frombuffer(rz, np.float32).copy()))
 
 
 @functools.lru_cache(maxsize=64)
@@ -655,7 +654,8 @@ def _profiles(cfg: SimConfig, device: torch.device):
     """`_profile_rows` on `device`, uploaded once per (cfg, device); the
     kernels only read them."""
     pz, px = _profile_rows(cfg)
-    return (torch.from_numpy(pz).to(device), torch.from_numpy(px).to(device))
+    return (spans.h2d(torch.from_numpy(pz).to(device)),
+            spans.h2d(torch.from_numpy(px).to(device)))
 
 
 def _load(device):
@@ -776,19 +776,20 @@ def _forward_kernel(plan: FastPlan, cfg: SimConfig, lam, mu, rho, stf, src,
                  if save_every else None)
         stream = torch.cuda.current_stream(device).cuda_stream
         one = np.float32(1.0)
-        err = lib.elastic_forward(
-            mats.data_ptr(), prof_z.data_ptr(), prof_x.data_ptr(),
-            stf.data_ptr(), *(t.data_ptr() for t in src),
-            _ptr(rec_z), _ptr(rec_x), _ptr(rec_w), _ptr(tile_ptr),
-            _ptr(tile_rec), fields.data_ptr(), psi.data_ptr(),
-            data.data_ptr(), _ptr(strips), _ptr(snaps), save_every, S,
-            cfg.nz, cfg.nx, cfg.nt,
-            *_row_args(rs), ETT_MODES[cfg.das_channel], *tile, cfg.npml,
-            cfg.n_bnd_layers,
-            *cpml_bands(cfg), ctypes.c_float(cfg.dt),
-            ctypes.c_float(cfg.src_scale * cfg.dt),
-            ctypes.c_float(one / np.float32(cfg.dz)),
-            ctypes.c_float(one / np.float32(cfg.dx)), stream)
+        with spans.span("cuda_engine.forward"):
+            err = lib.elastic_forward(
+                mats.data_ptr(), prof_z.data_ptr(), prof_x.data_ptr(),
+                stf.data_ptr(), *(t.data_ptr() for t in src),
+                _ptr(rec_z), _ptr(rec_x), _ptr(rec_w), _ptr(tile_ptr),
+                _ptr(tile_rec), fields.data_ptr(), psi.data_ptr(),
+                data.data_ptr(), _ptr(strips), _ptr(snaps), save_every, S,
+                cfg.nz, cfg.nx, cfg.nt,
+                *_row_args(rs), ETT_MODES[cfg.das_channel], *tile, cfg.npml,
+                cfg.n_bnd_layers,
+                *cpml_bands(cfg), ctypes.c_float(cfg.dt),
+                ctypes.c_float(cfg.src_scale * cfg.dt),
+                ctypes.c_float(one / np.float32(cfg.dz)),
+                ctypes.c_float(one / np.float32(cfg.dx)), stream)
     _raise_on(lib, err, "elastic_forward")
     with COUNT_LOCK:
         LAUNCHES += launches_forward(cfg)
@@ -874,17 +875,19 @@ def _backward_kernel(plan: FastPlan, lam, mu, rho, stf, src, final, strips,
                            dtype=torch.float32)
         d_stf = zeros(S, cfg.nt)
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.elastic_backward(
-            mats.data_ptr(), prof_z.data_ptr(), prof_x.data_ptr(),
-            stf.data_ptr(), *(t.data_ptr() for t in src),
-            strips.data_ptr(), d_data.data_ptr(), *(_ptr(t) for t in table),
-            _ptr(tile_ptr), _ptr(tile_inj), fields.data_ptr(),
-            work.data_ptr(), psi.data_ptr(),
-            gshot.data_ptr(), gmat.data_ptr(), d_stf.data_ptr(),
-            S, cfg.nz, cfg.nx, cfg.nt, *_row_args(rs),
-            ETT_MODES[cfg.das_channel], *tile, cfg.npml, cfg.n_bnd_layers,
-            *cpml_bands(cfg), ctypes.c_float(cfg.dt),
-            ctypes.c_float(cfg.src_scale * cfg.dt), stream)
+        with spans.span("cuda_engine.backward"):
+            err = lib.elastic_backward(
+                mats.data_ptr(), prof_z.data_ptr(), prof_x.data_ptr(),
+                stf.data_ptr(), *(t.data_ptr() for t in src),
+                strips.data_ptr(), d_data.data_ptr(),
+                *(_ptr(t) for t in table),
+                _ptr(tile_ptr), _ptr(tile_inj), fields.data_ptr(),
+                work.data_ptr(), psi.data_ptr(),
+                gshot.data_ptr(), gmat.data_ptr(), d_stf.data_ptr(),
+                S, cfg.nz, cfg.nx, cfg.nt, *_row_args(rs),
+                ETT_MODES[cfg.das_channel], *tile, cfg.npml,
+                cfg.n_bnd_layers, *cpml_bands(cfg), ctypes.c_float(cfg.dt),
+                ctypes.c_float(cfg.src_scale * cfg.dt), stream)
     _raise_on(lib, err, "elastic_backward")
     with COUNT_LOCK:
         LAUNCHES_BWD += launches_backward(cfg, rs)

@@ -15,6 +15,7 @@ from typing import Sequence
 
 import torch
 
+from sep2023_tpu_torch import spans
 from sep2023_tpu_torch.ops import signal as sg
 
 _CH_INDEX = {"pr": 0, "vx": 1, "vz": 2, "ett": 3}
@@ -31,7 +32,9 @@ def l2_misfit(obs, syn, channels: Sequence[str] = ("ett",), weights=None):
     """0.5 * sum of squared residuals over the selected channels (default:
     ett only, matching `libCUFD.cu:427`).  obs/syn are (4, R, nt) or
     (S, 4, R, nt)."""
-    r = residual(obs, syn)[..., [_CH_INDEX[c] for c in channels], :, :]
+    ch = spans.h2d(torch.tensor([_CH_INDEX[c] for c in channels],
+                                device=obs.device))
+    r = residual(obs, syn)[..., ch, :, :]
     if weights is not None:
         r = r * weights
     return 0.5 * (r * r).sum()

@@ -24,6 +24,8 @@ import torch
 from scipy import optimize as sciopt
 from scipy.io import savemat
 
+from sep2023_tpu_torch import spans
+
 
 class ScipyObjective:
     """Wrap a PyTorch scalar loss over a dict of tensors as a scipy
@@ -54,11 +56,12 @@ class ScipyObjective:
     # -- packing -------------------------------------------------------------
     def unpack(self, x: np.ndarray) -> Dict[str, torch.Tensor]:
         out, i = {}, 0
-        for n in self.names:
-            out[n] = torch.as_tensor(
-                x[i:i + self.sizes[n]].reshape(self.shapes[n])).to(
-                    self.device, self.dtype)
-            i += self.sizes[n]
+        with spans.span("optimize.unpack"):
+            for n in self.names:
+                out[n] = spans.h2d(torch.as_tensor(
+                    x[i:i + self.sizes[n]].reshape(self.shapes[n])).to(
+                        self.device, self.dtype))
+                i += self.sizes[n]
         return out
 
     def pack_bounds(self, bounds: Dict[str, tuple]) -> sciopt.Bounds:
@@ -78,12 +81,20 @@ class ScipyObjective:
     # -- evaluation ----------------------------------------------------------
     def _evaluate(self, x: np.ndarray):
         """(float f, packed float64 gradient) at x."""
-        params = {n: p.requires_grad_() for n, p in self.unpack(x).items()}
-        f = self._loss(params, *self._aux)
-        grads = torch.autograd.grad(f, [params[n] for n in self.names])
-        return float(f.detach()), np.concatenate(
-            [g.detach().cpu().numpy().astype(np.float64).ravel()
-             for g in grads])
+        with spans.span("optimize.evaluate", unit=True):
+            params = {n: p.requires_grad_()
+                      for n, p in self.unpack(x).items()}
+            with spans.span("optimize.loss"):
+                f = self._loss(params, *self._aux)
+            with spans.span("optimize.grad"):
+                grads = torch.autograd.grad(f, [params[n]
+                                                for n in self.names])
+            with spans.span("optimize.to_host"):
+                value = float(spans.d2h(f.detach()))
+                grads = [spans.d2h(g.detach()).cpu() for g in grads]
+            del params, f   # the graph is freed inside the evaluation
+            return value, np.concatenate(
+                [g.numpy().astype(np.float64).ravel() for g in grads])
 
     def _ensure(self, x: np.ndarray):
         if self._cached_x is None or not np.array_equal(x, self._cached_x):
@@ -367,10 +378,17 @@ def lbfgs_on_device(loss_fn, params0: Dict[str, np.ndarray], n_iter: int,
     def value_and_grad(p):
         history.n_evals += 1
         leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
-        with torch.enable_grad():
-            val = obj(leaves, *aux)
-            grads = torch.autograd.grad(val, [leaves[k] for k in names])
-        return float(val.detach()), dict(zip(names, grads))
+        with spans.span("optimize.evaluate", unit=True):
+            with torch.enable_grad():
+                with spans.span("optimize.loss"):
+                    val = obj(leaves, *aux)
+                with spans.span("optimize.grad"):
+                    grads = torch.autograd.grad(val, [leaves[k]
+                                                      for k in names])
+            with spans.span("optimize.to_host"):
+                value = float(spans.d2h(val.detach()))
+            del leaves, val   # the graph is freed inside the evaluation
+        return value, dict(zip(names, grads))
 
     zeros = lambda: {k: torch.zeros_like(v) for k, v in params.items()}
     mem_dp = [zeros() for _ in range(memory_size)]
@@ -428,6 +446,8 @@ def lbfgsb(objective: ScipyObjective, maxiter: int,
     opts.pop("disp", None)
     opts.pop("iprint", None)
     opts["maxiter"] = maxiter
-    return sciopt.minimize(objective.fun, objective.x0, method="L-BFGS-B",
-                           jac=objective.jac, bounds=objective.bounds,
-                           tol=None, callback=callback, options=opts)
+    with spans.span("optimize.lbfgsb"):
+        return sciopt.minimize(objective.fun, objective.x0,
+                               method="L-BFGS-B", jac=objective.jac,
+                               bounds=objective.bounds, tol=None,
+                               callback=callback, options=opts)

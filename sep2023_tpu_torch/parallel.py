@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from sep2023_tpu_torch import acoustic as acoustic_mod
-from sep2023_tpu_torch import propagator
+from sep2023_tpu_torch import propagator, spans
 from sep2023_tpu_torch.config import SimConfig, Survey
 from sep2023_tpu_torch.medium import MatFields, material_fields
 from sep2023_tpu_torch.ops import cuda_acoustic, cuda_engine
@@ -472,12 +472,14 @@ def make_cuda_misfit(cfg: SimConfig, survey: Survey,
     def loss(lam, mu, rho, stf, obs, weights, *trace_aux, first_shot=0):
         def chunk_loss(model, stf_c, rest_c, w_c):
             shots, obs_c, *aux_c = rest_c
-            idx = shots.numpy()
-            syn = cuda_engine.propagate_cuda_plan(
-                plan, *model, stf_c, src_z[idx], src_x[idx], rxz[idx])
-            if uidx is not None:
-                syn = _gather_union(syn, uidx[shots].to(syn.device))
-            return (w_c * fn(obs_c, syn, *aux_c)).sum()
+            with spans.span("parallel.chunk"):
+                idx = shots.numpy()
+                syn = cuda_engine.propagate_cuda_plan(
+                    plan, *model, stf_c, src_z[idx], src_x[idx], rxz[idx])
+                if uidx is not None:
+                    syn = _gather_union(syn, spans.h2d(
+                        uidx[shots].to(syn.device)))
+                return (w_c * fn(obs_c, syn, *aux_c)).sum()
 
         shots = torch.arange(first_shot, first_shot + stf.shape[0])
         if shots[-1] >= survey.n_shots:
