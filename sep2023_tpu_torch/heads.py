@@ -35,6 +35,12 @@ class Head:
     mask        : (nz, nx) blend mask (1 = invert here); default all ones
     to_lame     : padded blended params -> (lam, mu, rho)
     bounds      : optional {name: (lo, hi)} scalar or per-pixel L-BFGS-B bounds
+
+    `refs` and `mask` are read once per (device, dtype) of the parameters:
+    the first blend that sees the pair makes resident copies of them there
+    (`.to(device, dtype)`, so a float64 CPU run gets the fields themselves),
+    and every later blend reuses them.  Neither the fields nor the copies
+    are written afterwards.
     """
 
     grid: Grid
@@ -43,6 +49,19 @@ class Head:
     mask: torch.Tensor
     to_lame: Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
     bounds: Optional[Dict[str, Tuple]] = None
+    _resident: Dict = dataclasses.field(default_factory=dict, init=False,
+                                        repr=False, compare=False)
+
+    def _fields(self, device, dtype):
+        """(mask, {name: ref}) on device in dtype, made at the first call
+        with the pair; a copy to the device is counted when it is made."""
+        fields = self._resident.get((device, dtype))
+        if fields is None:
+            fields = (spans.h2d(self.mask.to(device, dtype)),
+                      {n: spans.h2d(self.refs[n].to(device, dtype))
+                       for n in self.param_names})
+            self._resident[(device, dtype)] = fields
+        return fields
 
     def blend(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         out = {}
@@ -50,9 +69,8 @@ class Head:
             p = params[name]
             pad = resize_and_pad(p, self.grid.nz_phys, self.grid.nx_phys,
                                  self.grid.npml)
-            mask = spans.h2d(self.mask.to(p.device, p.dtype))
-            ref = spans.h2d(self.refs[name].to(p.device, p.dtype))
-            out[name] = mask * pad + (1.0 - mask) * ref
+            mask, refs = self._fields(p.device, p.dtype)
+            out[name] = mask * pad + (1.0 - mask) * refs[name]
         return out
 
     def apply(self, params: Dict[str, torch.Tensor]):
@@ -63,8 +81,8 @@ class Head:
 
 def _make(grid: Grid, names, init: Dict[str, np.ndarray], to_lame,
           mask=None, bounds=None) -> Head:
-    """Reference fields and mask are kept in float64 on the CPU and cast to
-    the parameters' dtype and device when blended."""
+    """Reference fields and mask are kept in float64 on the CPU; `Head`
+    casts them to the parameters' device and dtype once per pair."""
     f64 = torch.float64
     mask = (torch.ones(grid.shape, dtype=f64) if mask is None
             else torch.as_tensor(np.asarray(mask), dtype=f64))

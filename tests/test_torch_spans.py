@@ -14,7 +14,10 @@ profiler's clock (the Unix clock) by one reading of both clocks taken
 together: the forward's kernels start after
 `cuda_engine.forward` began (the first within 2 ms), the backward's after
 `cuda_engine.backward` began, the copies to the host end inside
-`optimize.to_host`, and the counters count the trace's copies each way.
+`optimize.to_host`, and the counters count the trace's copies each way;
+and, once an evaluation has run, the head copies nothing to the device in
+an evaluation (its mask and reference fields stay there), which copies
+one parameter each and one channel index a shot.
 
     python -m pytest --noconftest tests/test_torch_spans.py -q
 """
@@ -305,3 +308,16 @@ def test_spans_on_the_profiler_clock(card):
                                                      t(host.t1))
     assert len(h2d) == sum(s.h2d for s in recs)
     assert len(d2h) == sum(s.d2h for s in recs)
+
+
+@pytest.mark.cuda
+def test_head_copies_nothing_once_warm(card):
+    obj, n_shots = _objective(card, nz=60, nx=100, nt=400)
+    obj._evaluate(obj.x0)
+    torch.cuda.synchronize()
+    mark = _last_id()
+    obj._evaluate(obj.x0)
+    recs = _mine(mark)
+    (head,) = [s for s in recs if s.name == "heads.apply"]
+    assert (head.h2d, head.h2d_bytes) == (0, 0)
+    assert sum(s.h2d for s in recs) == len(obj.names) + n_shots
