@@ -67,6 +67,7 @@ class Window:
     restarts: int = 0
     trace: dict | None = None
     trace_units: int = 0
+    trace_first: int | None = None   # the first traced unit
     marks: dict = dataclasses.field(default_factory=dict)  # set-up clock
     paused_s: float = 0.0   # window time the profiler's start and stop took
 
@@ -110,27 +111,35 @@ class Problem:
 
 
 def build(cj: dict, traffic: dict, fields: np.ndarray, device) -> Problem:
-    """The problem of configuration `cj` as `cli.cmd_invert` builds it:
-    `cli.benchmark_problem`, the tapered wavelets, the twin experiment's
-    true and start models of the configuration's head (the true one
-    perturbed by the seed's fields), the stability and reach checks, the
-    shot chunk of `parallel.auto_shot_chunk`."""
-    from sep2023_tpu_torch import cli, heads, medium, models, parallel
-    from sep2023_tpu_torch import survey_tools
+    """The problem of configuration `cj` as `cli.cmd_invert` builds it with
+    a survey of its own (`--survey-json`): the grid and wavelet of
+    `cli.benchmark_problem`, the configuration's line survey (its layout
+    keys src_z, src_x0, src_dx, n_shots, rec_z, rec_x0, n_rec) as a
+    `config.Survey` and `parallel.survey_to_geoms`, the wavelet a row a
+    shot, tapered; the twin experiment's true and start models of the
+    configuration's head (the true one perturbed by the seed's fields),
+    the stability and reach checks, the shot chunk of
+    `parallel.auto_shot_chunk`."""
+    from sep2023_tpu_torch import cli, config, heads, medium, models
+    from sep2023_tpu_torch import parallel, survey_tools
     from sep2023_tpu_torch.ops import signal as sg
 
     from fwibench.reference import twin
 
     dtype = torch.float32
-    cfg, survey, geoms, stf = cli.benchmark_problem(
+    cfg, _, _, stf = cli.benchmark_problem(
         nz=cj["nz"], nx=cj["nx"], dz=cj["dz"], dx=cj["dx"], nt=cj["nt"],
         dt=cj["dt"], f0=cj["f0"], npml=cj["npml"], wavelet=cj["wavelet"],
         device=device, dtype=dtype)
-    laid = twin.survey(cj)
-    if not all(np.array_equal(np.asarray(a), b) for a, b in zip(
-            (survey.src_z, survey.src_x, survey.rec_z, survey.rec_x), laid)):
-        raise ValueError(f"{cj['name']}: the port's survey is not the one "
-                         "the configuration lays out")
+    survey = config.Survey(*twin.survey(cj))
+    geoms = parallel.survey_to_geoms(survey, cfg.npml, device=device,
+                                     dtype=dtype)
+    laid = twin.geom(cj, device=device, dtype=dtype)
+    if not all(torch.equal(getattr(geoms, k), getattr(laid, k))
+               for k in ("src_z", "src_x", "rec_z", "rec_x")):
+        raise ValueError(f"{cj['name']}: the port places a source or a "
+                         "receiver elsewhere than the configuration")
+    stf = stf[0].expand(survey.n_shots, cfg.nt)
     stf = (stf * sg.taper_window(cfg.nt, cfg.dt, ratio=0.001, device=device,
                                  dtype=dtype)).contiguous()
     true, init, bounds, names = models.twin_experiment_setup(
@@ -177,17 +186,40 @@ def _sync(device):
 TRACE_AFTER = 3
 
 
-def _stretch(traffic, launches_per_unit, kernels, device):
-    """With kernels to trace, on the card: the units a trace covers, from
-    unit TRACE_AFTER on, as many as hold about traffic['trace_launches']
-    kernel launches, at least two; the profiler is started and stopped
-    once here, in set-up, so that its first start's cost stays out of the
-    window."""
+def _stretch(traffic, launches_per_unit, warm_s, seconds, kernels, device,
+             again):
+    """With kernels to trace, on the card: the units a trace covers, as
+    many as hold about traffic['trace_launches'] kernel launches, at least
+    two, from unit TRACE_AFTER on; or, where the window at the steady pace
+    could not hold those units and one more, from the window's start (the
+    profiler started here).  The steady pace is the time of a second warm
+    unit, `again()`, made only where the first one (`warm_s`, which may
+    build and compile) was that long: at Marmousi scale, 10 s evaluations
+    with scipy's steps between them, a later start traced one unit.  The
+    profiler is started and stopped once here, in set-up, so that its
+    first start's cost stays out of the window."""
     if not kernels or device.type != "cuda":
         return None
     n = max(2, traffic["trace_launches"] // max(1, launches_per_unit))
     Stretch.warm_up()
-    return Stretch(TRACE_AFTER, TRACE_AFTER + n - 1, kernels)
+    first = TRACE_AFTER
+    if (TRACE_AFTER + n + 1) * warm_s > seconds:
+        t0 = time.perf_counter()
+        again()
+        if (TRACE_AFTER + n + 1) * (time.perf_counter() - t0) > seconds:
+            first = 0
+    stretch = Stretch(first, first + n - 1, kernels)
+    if first == 0:
+        stretch.after(-1)
+    return stretch
+
+
+def _end_of_unit(win: Window, stretch, seconds) -> bool:
+    """Passes the window's last unit to the stretch; True when the window
+    has closed."""
+    if stretch is not None:
+        stretch.after(len(win.units) - 1)
+    return win.units[-1].t1 - win.t0 >= seconds
 
 
 def run_invert(p: Problem, cj, traffic, noise, seconds, *, device,
@@ -226,11 +258,19 @@ def run_invert(p: Problem, cj, traffic, noise, seconds, *, device,
     # warm-up: one evaluation, as the window makes them
     warm = objective(p.start)
     c0, _ = counts()
+    t0 = time.perf_counter()
     warm._evaluate(warm.x0)
     _sync(device)
     per_unit = total_launches(delta(c0, counts()[0]))
     marks["warm-up"] = time.perf_counter()
-    stretch = _stretch(traffic, per_unit, trace_kernels, device)
+
+    def again():
+        warm._evaluate(warm.x0)
+        _sync(device)
+        marks["steady unit"] = time.perf_counter()
+
+    stretch = _stretch(traffic, per_unit, marks["warm-up"] - t0, seconds,
+                       trace_kernels, device, again)
     marks["profiler"] = t_setup = time.perf_counter()
 
     units = []
@@ -249,9 +289,7 @@ def run_invert(p: Problem, cj, traffic, noise, seconds, *, device,
             c1, pl1 = counts()
             units.append(Unit(t0, t1, loss_s[0], delta(c0, c1), pl1 - pl0,
                               np.array(x), f, g))
-            if stretch is not None:
-                stretch.after(len(units) - 1)
-            if t1 - win.t0 >= seconds:
+            if _end_of_unit(win, stretch, seconds):
                 raise WindowClosed
             return f, g
 
@@ -277,10 +315,17 @@ def run_forward(p: Problem, traffic, seed, seconds, *, device,
                                 shot_chunk=p.shot_chunk, device=device,
                                 dtype=torch.float32)
     c0, _ = counts()
+    t0 = time.perf_counter()
     fwd(*p.true_lame, p.stf).cpu()
     per_unit = total_launches(delta(c0, counts()[0]))
     marks = {"warm-up": time.perf_counter()}
-    stretch = _stretch(traffic, per_unit, trace_kernels, device)
+
+    def again():
+        fwd(*p.true_lame, p.stf).cpu()
+        marks["steady unit"] = time.perf_counter()
+
+    stretch = _stretch(traffic, per_unit, marks["warm-up"] - t0, seconds,
+                       trace_kernels, device, again)
     marks["profiler"] = t_setup = time.perf_counter()
 
     rng = np.random.default_rng([int(seed) % 2 ** 63, 7])
@@ -302,9 +347,7 @@ def run_forward(p: Problem, traffic, seed, seconds, *, device,
                 del win.kept[sorted(win.kept)[j]]
                 win.kept[i] = host
         del host
-        if stretch is not None:
-            stretch.after(i)
-        if t1 - win.t0 >= seconds:
+        if _end_of_unit(win, stretch, seconds):
             break
     win.t1 = units[-1].t1
     _finish_trace(win, stretch)
@@ -315,7 +358,10 @@ def _finish_trace(win: Window, stretch):
     if stretch is None:
         return
     stretch.stop(len(win.units) - 1)
-    win.paused_s = stretch.overhead_s
+    # only what lies inside the window: a stretch that starts with it
+    # starts in set-up, and one that ends with it stops after its end
+    win.paused_s = sum(max(0.0, min(b, win.t1) - max(a, win.t0))
+                       for a, b in stretch.pauses)
     if stretch.done:
         win.trace = stretch.summary()
-        win.trace_units = stretch.units
+        win.trace_units, win.trace_first = stretch.units, stretch.first

@@ -88,16 +88,20 @@ def per_unit_ms(run, names, own=True):
 
 def less_ms(run, name, minus):
     """The durations of the spans named `name` inside the window's units
-    less those of the spans named in `minus` (on any thread), summed, per
-    unit, in ms; None where no unit holds a span named `name`."""
+    less those of the spans named in `minus` (on any thread) that lie
+    inside one of them, summed, per unit, in ms; None where no unit holds
+    a span named `name`.  (With shot chunks the adjoint runs inside the
+    loss, not inside the call into autograd.)"""
     units = by_unit(run)
     if units is None:
         return None
     found = _named(units, {name})
     if not found:
         return None
-    tot = sum(s.t1 - s.t0 for s, _ in found) \
-        - sum(s.t1 - s.t0 for s, _ in _named(units, minus))
+    outer = [(s.t0, s.t1) for s, _ in found]
+    tot = sum(b - a for a, b in outer) \
+        - sum(s.t1 - s.t0 for s, _ in _named(units, minus)
+              if any(a <= s.t0 and s.t1 <= b for a, b in outer))
     return tot / len(units) / 1e6
 
 

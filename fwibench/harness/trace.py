@@ -40,7 +40,7 @@ class Stretch:
         self.t0 = self.t1 = None
         self.units = 0
         self.spans = []
-        self.overhead_s = 0.0   # host time of starting and stopping it
+        self.pauses = []   # host-clock intervals of its starts and stops
 
     @staticmethod
     def warm_up():
@@ -60,7 +60,7 @@ class Stretch:
                                 acc_events=True)
             self.prof.start()
             self.t0 = time.perf_counter()
-            self.overhead_s += self.t0 - t
+            self.pauses.append((t, self.t0))
         elif i == self.last and self.prof is not None:
             self.stop(i)
 
@@ -76,7 +76,7 @@ class Stretch:
                             for e in self.prof.events()
                             if e.device_type == DeviceType.CUDA)
         self.prof = None
-        self.overhead_s += time.perf_counter() - self.t1
+        self.pauses.append((self.t1, time.perf_counter()))
 
     @property
     def done(self) -> bool:

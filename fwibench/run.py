@@ -162,7 +162,8 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float, trace: bool,
     if trace and win.trace is not None:
         t = win.trace
         dev_info.update(busy_s=t["busy_s"], window_s=t["window_s"],
-                        traced_units=win.trace_units, events=t["events"])
+                        traced_units=win.trace_units,
+                        trace_first_unit=win.trace_first, events=t["events"])
         if on_card:
             dev_info["power_limit"] = power_limit()
         result["breakdown"] = {"device_ops": t["ops"],

@@ -8,6 +8,7 @@ a traced run's comparison) leaves them all out; and any other fault of
 the import fails the run."""
 import math
 import sys
+import types
 
 import pytest
 import torch
@@ -89,6 +90,29 @@ def test_a_broken_span_module_fails_the_run(monkeypatch):
     monkeypatch.setattr(program.importlib, "import_module", broken)
     with pytest.raises(ModuleNotFoundError):
         program.records()
+
+
+def _span(name, t0, t1, parent=0):
+    return types.SimpleNamespace(name=name, t0=int(t0 * 1e9),
+                                 t1=int(t1 * 1e9), id=id(name) + t0,
+                                 parent=parent)
+
+
+@pytest.mark.parametrize("chunked,ms", [(False, 60.0), (True, 60.0)])
+def test_the_adjoint_is_taken_only_from_inside_autograds_call(
+        chunked, ms, monkeypatch):
+    """`autograd_ms.grad` at one chunk (the adjoint inside the call into
+    autograd) and at two (the first chunk's adjoint inside the loss, where
+    `_ChunkedSum` takes each chunk's gradient): never the loss's own."""
+    recs = [_span("optimize.evaluate", 1.0, 1.95),
+            _span("optimize.loss", 1.1, 1.7),
+            _span("optimize.grad", 1.75, 1.9),
+            _span("cuda_engine.backward", 1.76, 1.85)]
+    if chunked:
+        recs.append(_span("cuda_engine.backward", 1.2, 1.4))
+    monkeypatch.setattr(program, "records", lambda: recs)
+    got = bench_run.metric_reader("autograd_ms.grad")(_Run())
+    assert got == pytest.approx(ms)
 
 
 class _Window:
